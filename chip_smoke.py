@@ -5,7 +5,8 @@ repository's ``henjou_torch`` package beside it) it exits non-zero and
 prints no result. Phases, each of which raises on failure:
 
 1. the device: name and power limit;
-2. the build of ``henjou_torch/csrc/*.cu`` with nvcc (seconds);
+2. the build of ``henjou_torch/csrc/*.cu`` with nvcc, one process per
+   source (seconds);
 3. the bitonic sort kernel against its plain version at n = 1024 and
    65536 with 10 columns (the key, [n, 3] origin and direction rows, two
    planes and the lane id): keys and planes bit-equal, every (key,
@@ -16,18 +17,40 @@ prints no result. Phases, each of which raises on failure:
    1e-5 where both hit, hit flips at most 1e-4 of the rays, prim equal
    except where the other triangle is hit at the same t, and u, v within
    1e-6 where both hit the same triangle;
-5. the wavefront engine on the gallery at 64x36, 4 spp, 4096 lanes, once
+5. the three cluster intersectors (flat scan ``cluster.cu``, two-level
+   ``cluster_hbm.cu``, matrix form ``mxu.cu``) against their plain
+   versions on the same rays and scenes, with the limits of phase 4;
+6. the wavefront engine on the gallery at 64x36, 4 spp, 4096 lanes, once
    with the kernels and once with the plain versions passed explicitly:
    per-pixel RMSE of the mean colour at most 5e-3 (atomic film sums and a
    rare hit flip reorder the arithmetic), sample counts equal;
-6. the gallery render through the CLI (``henjou_torch.render.main``) at 16
+7. the same for two-sample MIS (``mis_single=False``) with each cluster
+   intersector inside the argsort wrapper `make_sorted_intersector`;
+8. the binned light query (kernel 1 over the emissive subset) against the
+   dense `intersect_lights` on the gallery's rays and on a scene of 1,100
+   emissive triangles: hit flips at most 1e-4 of the rays, prim equal up
+   to ties, t within a relative 1e-4 (Baldwin-Weber against
+   Moller-Trumbore, two formulas) and the light's area within 1e-5;
+9. the gallery render through the CLI (``henjou_torch.render.main``) at 16
    spp: a decodable 512x288 PNG, a finite film, spp/s and Mrays/s;
-7. contest frame 0 at 1280x720, Default mode, 4 spp, through the
-   Renderer API, with per-phase seconds.
+10. contest frame 0 at 1280x720, Default mode, 4 spp, through the
+    Renderer API, with per-phase seconds;
+11. the scale test (``henjou_torch.tools.scale_test``) at full width: a
+    194,044-triangle scene at 1920x1080, 2 spp, two-sample MIS, in two
+    rows (binned+bitonic, and the two-level kernel in the argsort
+    wrapper), each rendered once untimed and once timed: finite films,
+    seconds, traces, Mrays/s and the RMSE between the rows;
+12. contest frame 0 as in 10 with ``mis_mode="ref"``.
 
-The launch counters of both kernel wrappers are zeroed just before phase
-6 and read after phase 7; both must have grown. The line before the last
-is the card's name and power limit; before that, one JSON line with each
+Launch counters are zeroed just before, and read just after, each path
+that drives kernels through a user's entry point: phase 7's kernel
+renders (the cluster intersectors, which no renderer routes), phases 9-10
+(the default main path: bitonic and binned) and phases 11-12 (this
+slice's path: bitonic, binned and the two-level kernel). Each kernel of a
+path must have grown there. The kernels line reports the bitonic and
+binned counts of phases 9-10, the two-level kernel's of phases 11-12 and
+the flat and matrix kernels' of phase 7. The line before the last is the
+card's name and power limit; before that, one JSON line with each
 kernel's launches, error against its plain version and times. The last
 line is the result JSON.
 """
@@ -52,6 +75,10 @@ TOL_ENGINE_RMSE = 5e-3
 GALLERY = "scenes/sphere_gallery_option.json"
 CONTEST = "scenes/rtcamp_720_option.json"
 N_RAYS = 1 << 16
+# binned light query against dense Moller-Trumbore: two formulas, as in
+# tests/test_torch_accel.py's binned-vs-brute-force limit
+TOL_T_REL_FORMULAS = 1e-4
+CLUSTER_KERNELS = ("cluster", "cluster_hbm", "mxu")
 
 
 def log(*args):
@@ -219,6 +246,64 @@ def phase_intersect(dev, results):
     results["binned"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
 
 
+def _cluster_kernel(kind):
+    """(module, kernel wrapper, plain version, make_intersector, pack
+    builder over a FrameScene) of a cluster intersector."""
+    from henjou_torch.accel import pallas_cluster as pc
+    from henjou_torch.accel import pallas_cluster_hbm as hbm
+    from henjou_torch.accel import pallas_mxu as mxu
+
+    return {
+        "cluster": (pc, pc.intersect_pallas, pc.intersect_pallas_plain,
+                    pc.make_pallas_intersector, lambda fs: pc.pack_clusters(fs.tri_verts)),
+        "cluster_hbm": (hbm, hbm.intersect_pallas_hbm, hbm.intersect_pallas_hbm_plain,
+                        hbm.make_pallas_hbm_intersector,
+                        lambda fs: hbm.pack_clusters_hbm_np(fs.tri_verts.cpu().numpy(), fs.tri_verts.device)),
+        "mxu": (mxu, mxu.intersect_pallas_mxu, mxu.intersect_pallas_mxu_plain,
+                mxu.make_pallas_mxu_intersector,
+                lambda fs: mxu.pack_clusters_mxu_np(fs.tri_verts.cpu().numpy(), fs.tri_verts.device)),
+    }[kind]
+
+
+def phase_cluster_intersect(dev, results):
+    """Kernels 3-5 against their plain versions, closest and any hit, on
+    the gallery and contest frame 0 (phase 4's rays and limits)."""
+    from henjou_torch.runtime.renderer import Renderer
+
+    rng = np.random.default_rng(3)
+    for label, path in (("gallery", GALLERY), ("contest", CONTEST)):
+        r = Renderer(device=dev)
+        r.load_render_option(path)
+        r._load_scene_from_option()
+        fs, accel, cam = r.frame_scene(0)
+        o, d = _test_rays(r, accel, cam, dev, rng)
+        for kind in CLUSTER_KERNELS:
+            _, fn, plain, _, build = _cluster_kernel(kind)
+            t0 = time.monotonic()
+            packed = build(fs)
+            torch.cuda.synchronize()
+            pack_s = time.monotonic() - t0
+            for any_hit in (False, True):
+                name = f"{kind} {label} {'any' if any_hit else 'closest'}"
+                k = fn(packed, o, d, 1e-3, any_hit=any_hit)
+                torch.cuda.synchronize()
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                p = plain(packed, o, d, 1e-3, any_hit=any_hit)
+                e1.record()
+                torch.cuda.synchronize()
+                plain_ms = e0.elapsed_time(e1)
+                err = _check_intersections(name, fs.tri_verts, o, d, k, p, any_hit)
+                ms = cuda_ms(lambda: fn(packed, o, d, 1e-3, any_hit=any_hit), 10)
+                log(f"[{name}] {packed.num_clusters} clusters, pack {pack_s:.2f} s: "
+                    f"kernel {ms:.4f} ms/trace, plain {plain_ms:.4f} ms/trace")
+                res = results.setdefault(kind, dict(max_abs_err=0.0, times={}))
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["times"][f"{label}_{'any' if any_hit else 'closest'}"] = (ms, plain_ms)
+    for kind in CLUSTER_KERNELS:
+        results[kind]["ms"], results[kind]["plain_ms"] = results[kind]["times"]["contest_closest"]
+
+
 def phase_engine(dev):
     from henjou_torch.accel import bitonic
     from henjou_torch.accel.pallas_binned import intersect_binned_plain, make_binned_intersector
@@ -262,6 +347,135 @@ def phase_engine(dev):
     log(f"[engine] kernels vs plain versions: RMSE {rmse:.3g} (mean {float(a.mean()):.4f}), counts equal")
 
 
+def phase_engine_ref(dev):
+    """Two-sample MIS on the gallery with each cluster kernel inside the
+    argsort wrapper, against the same render with its plain version.
+    Returns the kernels' launch counts of the kernel renders."""
+    from henjou_torch.accel.sorting import make_sorted_intersector
+    from henjou_torch.integrator.wavefront import wavefront_render
+    from henjou_torch.runtime.renderer import Renderer
+
+    r = Renderer(device=dev)
+    r.load_render_option(GALLERY)
+    r._load_scene_from_option()
+    fs, accel, cam = r.frame_scene(0)
+    w, h, spp = 64, 36, 4
+    launches = {}
+    for kind in CLUSTER_KERNELS:
+        mod, fn, plain, make, build = _cluster_kernel(kind)
+        packed = build(fs)
+        films = []
+        for intersect in (fn, plain):
+            fns = make_sorted_intersector(*make(packed, intersect=intersect),
+                                          accel.scene_lo, accel.scene_hi)
+            if intersect is fn:
+                for m in CLUSTER_KERNELS:
+                    _cluster_kernel(m)[0].LAUNCHES = 0
+            t0 = time.monotonic()
+            film = wavefront_render(
+                fs, r.sky, cam, w, h, spp, r.bsdf_sample, bsdf_eval=r.bsdf_eval,
+                bsdf_pdf=r.bsdf_pdf, integrator="mis", seed=0, lanes=4096,
+                intersect_fn=fns[0], occluded_fn=fns[1], mis_single=False,
+            )
+            torch.cuda.synchronize()
+            if intersect is fn:
+                launches[kind] = mod.LAUNCHES
+                if launches[kind] == 0:
+                    raise AssertionError(f"[engine ref] {kind}: the kernel was not launched")
+            films.append(film)
+            log(f"[engine ref] {kind} {'kernel' if intersect is fn else 'plain'} {w}x{h} "
+                f"{spp} spp: {time.monotonic() - t0:.3f} s, {int(film.n_traces)} traces")
+        a, b = (f.color / f.count.clamp(min=1)[:, None] for f in films)
+        rmse = float(torch.sqrt(((a - b) ** 2).mean()))
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"[engine ref] {kind}: kernel film not finite")
+        if not torch.equal(films[0].count, films[1].count):
+            raise AssertionError(f"[engine ref] {kind}: sample counts differ")
+        if rmse > TOL_ENGINE_RMSE:
+            raise AssertionError(f"[engine ref] {kind}: RMSE {rmse} > {TOL_ENGINE_RMSE}")
+        log(f"[engine ref] {kind} kernel vs plain: RMSE {rmse:.3g} (mean {float(a.mean()):.4f}), "
+            f"counts equal, {launches[kind]} launches")
+    return launches
+
+
+def _panel_lights_scene(n_panels=550):
+    """A floor and n_panels emissive quads: 1,100 emissive triangles."""
+    from henjou_torch.scene.scenedata import SceneData, make_material
+
+    rng = np.random.default_rng(2)
+    s, w = 10.0, 0.15
+    verts = [[[-s, -1, -s], [-s, -1, s], [s, -1, s], [-s, -1, -s], [s, -1, s], [s, -1, -s]]]
+    norms = [[[0, 1, 0]] * 6]
+    for _ in range(n_panels):
+        c = rng.uniform(-8, 8, 3)
+        c[1] = rng.uniform(1.0, 6.0)
+        x0, x1, y, z0, z1 = c[0] - w, c[0] + w, c[1], c[2] - w, c[2] + w
+        verts.append([[x0, y, z0], [x1, y, z0], [x1, y, z1], [x0, y, z0], [x1, y, z1], [x0, y, z1]])
+        norms.append([[0, -1, 0]] * 6)
+    v = np.asarray(verts, np.float32).reshape(-1, 3)
+    return SceneData(
+        vertices=v, indices=np.arange(len(v), dtype=np.uint32),
+        material_ids=np.repeat(np.asarray([0] + [1] * n_panels, np.uint32), 2),
+        normals=np.asarray(norms, np.float32).reshape(-1, 3), texcoords=None, colors=None,
+        materials=[make_material("floor", base_color=(0.7, 0.7, 0.7), roughness=0.8),
+                   make_material("light", emission=(5.0, 4.0, 3.0), is_light=True)],
+    )
+
+
+def phase_light_query(dev):
+    """The binned light query (kernel 1 on the emissive subset) against
+    the dense `intersect_lights`."""
+    from henjou_torch.accel import pallas_binned
+    from henjou_torch.runtime.renderer import Renderer
+    from henjou_torch.sampling.light_sample import (
+        build_light_accel,
+        intersect_lights,
+        make_binned_light_intersector,
+    )
+    from henjou_torch.scene.scenedata import build_device_scene, build_frame_scene
+
+    r = Renderer(device=dev)
+    r.load_render_option(GALLERY)
+    r._load_scene_from_option()
+    fs, accel, cam = r.frame_scene(0)
+    o, d = _test_rays(r, accel, cam, dev, np.random.default_rng(4))
+    fs_many = build_frame_scene(build_device_scene(_panel_lights_scene(), dev))
+    rng = np.random.default_rng(5)
+    o_m = rng.uniform(-9, 9, (N_RAYS, 3)).astype(np.float32)
+    o_m[:, 1] = -0.5
+    d_m = rng.normal(size=(N_RAYS, 3)).astype(np.float32)
+    d_m[:, 1] = np.abs(d_m[:, 1]) + 0.2  # up at the panels
+    d_m /= np.linalg.norm(d_m, axis=1, keepdims=True)
+    cases = (("gallery", fs, o, d),
+             ("1100 lights", fs_many, torch.from_numpy(o_m).to(dev), torch.from_numpy(d_m).to(dev)))
+    for label, frame, ro, rd in cases:
+        la = build_light_accel(frame.tri_verts.cpu().numpy(),
+                               frame.device.light_prim_ids.cpu().numpy(), dev)
+        before = pallas_binned.LAUNCHES
+        b = make_binned_light_intersector(la)(frame, ro, rd, 1e-3, 1e16)
+        torch.cuda.synchronize()
+        if pallas_binned.LAUNCHES != before + 1:
+            raise AssertionError(f"[light query] {label}: the binned kernel was not launched")
+        dn = intersect_lights(frame, ro, rd, 1e-3, 1e16)
+        flips = int((b[4] != dn[4]).sum())
+        if flips > TOL_FLIPS * ro.shape[0]:
+            raise AssertionError(f"[light query] {label}: {flips} hit flips")
+        both = b[4] & dn[4]
+        rel = float(((b[0][both] - dn[0][both]).abs() / dn[0][both]).max()) if both.any() else 0.0
+        if rel > TOL_T_REL_FORMULAS:
+            raise AssertionError(f"[light query] {label}: t differs by a relative {rel}")
+        same = both & (b[1] == dn[1])
+        n_tie = int((both & ~same).sum())
+        if n_tie > TOL_FLIPS * ro.shape[0]:
+            raise AssertionError(f"[light query] {label}: prim differs on {n_tie} rays")
+        area = float(((b[5][same] - dn[5][same]).abs() / dn[5][same]).max()) if same.any() else 0.0
+        if area > 1e-5:
+            raise AssertionError(f"[light query] {label}: area differs by a relative {area}")
+        log(f"[light query] {label}: {la.light_prim_ids.numel()} lights in "
+            f"{la.bc.num_clusters} clusters, hits {int(dn[4].sum())}/{ro.shape[0]}, flips {flips}, "
+            f"max rel t err {rel:.3g}, prim ties {n_tie}, max rel area err {area:.3g}")
+
+
 def _decode_png(path, w, h):
     from henjou_torch.post.png import read_png
 
@@ -290,7 +504,7 @@ def phase_gallery(tmp):
         f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s; CLI wall {wall:.2f} s")
 
 
-def phase_contest(dev, tmp):
+def phase_contest(dev, tmp, mis_mode="single"):
     from henjou_torch.runtime.options import RenderMode
     from henjou_torch.runtime.renderer import Renderer
 
@@ -298,8 +512,8 @@ def phase_contest(dev, tmp):
     r = Renderer(device=dev)
     r.load_render_option(CONTEST)
     r.option = dataclasses.replace(
-        r.option, render_mode=RenderMode.DEFAULT, end_frame=1, max_spp=4,
-        image_name=os.path.join(tmp, "contest"),
+        r.option, render_mode=RenderMode.DEFAULT, end_frame=1, max_spp=4, mis_mode=mis_mode,
+        image_name=os.path.join(tmp, f"contest_{mis_mode}"),
     )
     r._load_scene_from_option()
     written = r.initialize_and_render()
@@ -309,22 +523,37 @@ def phase_contest(dev, tmp):
     if not fr["film_finite"]:
         raise AssertionError("[contest] film not finite")
     s = r.setup_stats
-    log(f"[contest] 1280x720 {fr['spp']} spp: wall {wall:.2f} s; load {s['load_s']:.2f} s, "
+    log(f"[contest mis_mode={mis_mode}] 1280x720 {fr['spp']} spp: wall {wall:.2f} s; load {s['load_s']:.2f} s, "
         f"device scene {s['device_scene_s']:.2f} s, flatten+pack {fr['build_s']:.2f} s, "
         f"render {fr['render_s']:.2f} s ({fr['spp'] / fr['render_s']:.3f} spp/s, "
         f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s), PNG {fr['finalize_png_s']:.2f} s")
+
+
+def phase_scale(dev):
+    from henjou_torch.tools.scale_test import ROWS, run_scale_test
+
+    t0 = time.monotonic()
+    out = run_scale_test(dev, log=log)
+    for name in ROWS:
+        row = out["rows"][name]
+        if not row["film_finite"]:
+            raise AssertionError(f"[scale] {name}: film not finite")
+        if min(row["launches"].values()) <= 0:
+            raise AssertionError(f"[scale] {name}: a kernel was not launched: {row['launches']}")
+    log(f"[scale] both rows in {time.monotonic() - t0:.2f} s")
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
     from henjou_torch import csrc
-    from henjou_torch.accel import bitonic, pallas_binned
+    from henjou_torch.accel import bitonic, pallas_binned, pallas_cluster_hbm
 
     dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    log(f"[device] {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}); {smi}")
+    log(f"[device] {device_name} (torch {torch.__version__}, CUDA {torch.version.cuda}); {smi}")
 
     t0 = time.monotonic()
     csrc.load_library()
@@ -334,20 +563,40 @@ def main() -> int:
     results = {}
     phase_sort(dev, results)
     phase_intersect(dev, results)
+    phase_cluster_intersect(dev, results)
     phase_engine(dev)
+    ref_launches = phase_engine_ref(dev)
+    phase_light_query(dev)
+
+    def zero():
+        for m in (bitonic, pallas_binned, pallas_cluster_hbm):
+            m.LAUNCHES = 0
 
     with tempfile.TemporaryDirectory() as tmp:
-        bitonic.LAUNCHES = 0
-        pallas_binned.LAUNCHES = 0
+        # the default main path
+        zero()
         phase_gallery(tmp)
         after_gallery = (bitonic.LAUNCHES, pallas_binned.LAUNCHES)
         if min(after_gallery) == 0:
             raise AssertionError(f"[gallery] a kernel was not launched: {after_gallery}")
         phase_contest(dev, tmp)
         launches = {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES}
-    if min(launches[k] - v for k, v in zip(("bitonic", "binned"), after_gallery)) <= 0:
-        raise AssertionError(f"[contest] a kernel was not launched: {launches}")
-    log(f"[launches] main path: {launches}")
+        if min(launches[k] - v for k, v in zip(("bitonic", "binned"), after_gallery)) <= 0:
+            raise AssertionError(f"[contest] a kernel was not launched: {launches}")
+        log(f"[launches] main path (gallery + contest): {launches}")
+        # this slice's path: the scale test and contest frame 0 with mis_mode="ref"
+        zero()
+        phase_scale(dev)
+        after_scale = (bitonic.LAUNCHES, pallas_binned.LAUNCHES, pallas_cluster_hbm.LAUNCHES)
+        phase_contest(dev, tmp, mis_mode="ref")
+        slice_launches = {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES,
+                          "cluster_hbm": pallas_cluster_hbm.LAUNCHES}
+        if min(bitonic.LAUNCHES - after_scale[0], pallas_binned.LAUNCHES - after_scale[1]) <= 0:
+            raise AssertionError(f"[contest ref] a kernel was not launched: {slice_launches}")
+        log(f"[launches] slice path (scale test + contest mis_mode=ref): {slice_launches}")
+    log(f"[launches] two-sample engine phase (cluster kernels): {ref_launches}")
+    launches.update(cluster=ref_launches["cluster"], mxu=ref_launches["mxu"],
+                    cluster_hbm=slice_launches["cluster_hbm"])
 
     kernels = [
         dict(name="bitonic_sort", route="cuda", source="henjou_torch/csrc/bitonic.cu",
@@ -359,9 +608,16 @@ def main() -> int:
              max_abs_err=results["binned"]["max_abs_err"], ms=results["binned"]["ms"],
              plain_ms=results["binned"]["plain_ms"]),
     ]
+    for k, replaces in (("cluster", "henjou_tpu/accel/pallas_cluster.py:115"),
+                        ("cluster_hbm", "henjou_tpu/accel/pallas_cluster_hbm.py:111"),
+                        ("mxu", "henjou_tpu/accel/pallas_mxu.py:156")):
+        kernels.append(dict(name=f"{k}_intersect", route="cuda",
+                            source=f"henjou_torch/csrc/{k}.cu", replaces=replaces,
+                            launches=launches[k], max_abs_err=results[k]["max_abs_err"],
+                            ms=results[k]["ms"], plain_ms=results[k]["plain_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -35,15 +35,11 @@ import functools
 import numpy as np
 import torch
 
+from henjou_torch.accel.pallas_cluster import K, _BIG, _safe_inv, _slab
+from henjou_torch.accel.pallas_cluster_hbm import SC
 from henjou_torch.csrc import INT, PTR, bind, check
 from henjou_torch.math.constants import TMAX_RAY
 
-# triangles per leaf cluster and the padding-box coordinate
-# (henjou_tpu/accel/pallas_cluster.py K, _BIG)
-K = 128
-_BIG = 3e38
-# clusters per group for big scenes (henjou_tpu/accel/pallas_cluster_hbm.py SC)
-SC = 16
 # cluster groups per worklist entry: 1 up to this many clusters, SC above
 MAX_FINE_CLUSTERS = 512
 # group size doubles until the number of groups is at most this
@@ -179,11 +175,6 @@ def pack_binned_np(tri_verts, device, k: int = K) -> BinnedClusters:
     )
 
 
-def _safe_inv(d: torch.Tensor) -> torch.Tensor:
-    tiny = torch.where(d >= 0.0, 1e-12, -1e-12).to(d.dtype)
-    return 1.0 / torch.where(d.abs() < 1e-12, tiny, d)
-
-
 def _scene_exit_t(bc: BinnedClusters, ray_o, ray_d, tmin):
     """Per-ray exit t of the scene AABB (slab), with a relative safety
     margin; rays missing the box get tmin (zero-width = dead)."""
@@ -194,18 +185,6 @@ def _scene_exit_t(bc: BinnedClusters, ray_o, ray_d, tmin):
     t_enter = torch.amax(torch.minimum(t1, t2), dim=1)
     t_exit = t_exit * (1.0 + 1e-4) + 1e-5
     return torch.where((t_exit >= t_enter) & (t_exit > tmin), t_exit, tmin)
-
-
-def _slab(box, col, o, inv, t_lo, t_hi):
-    """Per-ray slab test of AABB column `col` of an [8, *] table against
-    [t_lo, t_hi] — the kernel's `slab`, vectorised over rays."""
-    te, tx = t_lo, t_hi
-    for a in range(3):
-        t1 = (box[a, col] - o[:, a]) * inv[:, a]
-        t2 = (box[3 + a, col] - o[:, a]) * inv[:, a]
-        te = torch.maximum(te, torch.minimum(t1, t2))
-        tx = torch.minimum(tx, torch.maximum(t1, t2))
-    return te <= tx
 
 
 def _intersect_plain(bc: BinnedClusters, ray_o, ray_d, tmin, tmax, any_hit):

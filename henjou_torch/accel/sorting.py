@@ -1,6 +1,6 @@
 """Bounce-ray sorting around every trace (port of
-henjou_tpu/accel/sorting.py: `ray_sort_key`, `DEAD_KEY` and
-`make_bitonic_sorted_intersector`).
+henjou_tpu/accel/sorting.py: `ray_sort_key`, `DEAD_KEY`,
+`make_sorted_intersector` and `make_bitonic_sorted_intersector`).
 
 Before the kernel, rays are sorted by a 24-bit key (direction octant over
 an 18-bit origin Morton code) with dead lanes (tmax <= tmin) last; after
@@ -48,6 +48,36 @@ def ray_sort_key(ray_o, ray_d, lo, inv_extent):
         | _part1by2(qi[:, 2])
     )
     return (octant << 18) | morton
+
+
+def make_sorted_intersector(intersect_fn, occluded_fn, lo, hi):
+    """Wrap (intersect_fn, occluded_fn) so rays are sorted into coherent
+    order before the kernel and results unsorted after, with a stable
+    `torch.argsort` of the same key and gathers (the JAX package's
+    `make_sorted_intersector`, which runs no Pallas kernel either). Dead
+    lanes keep their key. lo/hi: the scene AABB corners ([3] tensors or
+    arrays)."""
+    lo = torch.as_tensor(lo, dtype=torch.float32)
+    inv_extent = 1.0 / torch.clamp(torch.as_tensor(hi, dtype=torch.float32) - lo, min=1e-12)
+
+    def _sorted(fn, closest: bool):
+        def wrapped(tri, ray_o, ray_d, tmin, tmax):
+            r = ray_o.shape[0]
+            dev = ray_o.device
+            tmin_b = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r)
+            tmax_b = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
+            key = ray_sort_key(ray_o, ray_d, lo.to(dev), inv_extent.to(dev))
+            perm = torch.argsort(key, stable=True)
+            out = fn(tri, ray_o[perm], ray_d[perm], tmin_b[perm], tmax_b[perm])
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(r, device=dev)
+            if not closest:
+                return out[inv]
+            return tuple(x[inv] for x in out)
+
+        return wrapped
+
+    return _sorted(intersect_fn, True), _sorted(occluded_fn, False)
 
 
 def _padded_size(r: int) -> int:

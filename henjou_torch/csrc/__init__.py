@@ -1,16 +1,19 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-All sources compile in one ``nvcc`` call into one shared library with a
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into one shared library with a
 plain C interface, which is loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC --fmad=false -o build/henjou_torch/lib...so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC --fmad=false -c -o X.o csrc/X.cu     (per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o lib...so *.o
 
-``--fmad=false`` keeps the intersector's t, u and v equal to its plain
-PyTorch version to the ulp (the sort is integer-only, so the flag does not
-touch it). The library lands in ``build/henjou_torch/`` at the repository
-root, named by a hash of the sources and flags, so an edit to any source
-rebuilds it and an unchanged tree reuses it.
+``--fmad=false`` keeps the intersectors' t, u and v equal to their plain
+PyTorch versions to the ulp (the sort is integer-only, so the flag does
+not touch it). The library lands in ``build/henjou_torch/`` at the
+repository root, named by a hash of the sources, the shared header and
+the flags, so an edit to any of them rebuilds it and an unchanged tree
+reuses it.
 
 Each C entry point takes device pointers and a ``cudaStream_t`` (all as
 ``c_void_p``), launches on that stream without synchronising, and returns
@@ -23,6 +26,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -30,11 +34,9 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "henjou_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "--fmad=false",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "--fmad=false")
 
 # seconds the last build took in this process (0.0 when the library was
 # already built); set by load_library
@@ -53,11 +55,24 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and common.cuh
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS).encode())
     return BUILD_DIR / f"libhenjou_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands at once; raise with the compiler's output of the
+    first that fails, after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+            )
 
 
 @functools.cache
@@ -69,17 +84,17 @@ def load_library() -> ctypes.CDLL:
     t0 = time.monotonic()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
+        work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        try:
+            objs = [work / f"{src.stem}.o" for src in _sources()]
+            _run_all([[_nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                      for src, obj in zip(_sources(), objs)])
+            tmp = work / "lib.so"
+            _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+            os.replace(tmp, lib_path)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         BUILD_SECONDS.update(seconds=time.monotonic() - t0, built=True)
     return ctypes.CDLL(str(lib_path))
 

@@ -35,37 +35,15 @@
 // of one warp mostly keep the same clusters and read the same rows, and
 // dead rays (tmax <= tmin) sort to the end, where whole warps exit at once.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int K = 128;       // triangles per leaf cluster
-constexpr int PLANES = 16;   // rows per cluster
+using henjou::K;
+using henjou::safe_inv;
+using henjou::slab;
 
-__device__ __forceinline__ float safe_inv(float d) {
-  const float tiny = d >= 0.0f ? 1e-12f : -1e-12f;
-  return 1.0f / (fabsf(d) < 1e-12f ? tiny : d);
-}
-
-// Slab test of box `col` of an [8, stride] AABB table against
-// [t_lo, t_hi]; the same arithmetic as the plain version's `_slab`.
-__device__ __forceinline__ bool slab(const float* __restrict__ box,
-                                     long long stride, long long col, float ox,
-                                     float oy, float oz, float ix, float iy,
-                                     float iz, float t_lo, float t_hi) {
-  float te = t_lo, tx = t_hi;
-  const float o[3] = {ox, oy, oz};
-  const float iv[3] = {ix, iy, iz};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float t1 = (box[a * stride + col] - o[a]) * iv[a];
-    const float t2 = (box[(3 + a) * stride + col] - o[a]) * iv[a];
-    te = fmaxf(te, fminf(t1, t2));
-    tx = fminf(tx, fmaxf(t1, t2));
-  }
-  return te <= tx;
-}
+constexpr int PLANES = 16;  // rows per cluster
 
 __global__ void binned_kernel(const float* __restrict__ rows,
                               const float* __restrict__ aabb, long long cp,

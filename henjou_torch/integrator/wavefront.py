@@ -7,11 +7,19 @@ sampler is counter-based, so a refilled lane draws exactly the stream
 its sample would have drawn anywhere else.
 
 Estimators: pathtrace (radiance trace only), nee (+ light sample and
-shadow trace) and mis with ``mis_single=True``, the one-sample form: the
-path-continuation BSDF draw is the MIS BSDF branch, its emission is
-collected at the next radiance hit with a balance weight against the
-reverse light pdf of the prim hit, and paths get one extra emission-only
-segment at depth == max_depth.
+shadow trace) and mis in two forms:
+
+- ``mis_single=True``, the one-sample form: the path-continuation BSDF
+  draw is the MIS BSDF branch, its emission is collected at the next
+  radiance hit with a balance weight against the reverse light pdf of the
+  prim hit, and paths get one extra emission-only segment at
+  depth == max_depth;
+- ``mis_single=False`` (``mis_mode="ref"``), the reference's two-sample
+  form: an independent BSDF-branch draw per bounce whose hit is only used
+  when it is a light or a miss. It is traced as a dense or binned closest
+  hit against the emissive triangles (`light_isect_fn`, default
+  `intersect_lights`) plus a bounded any-hit query up to that light, and
+  `closest_hit` is fed the synthesized result.
 
 Differences from the JAX engine, none of which change an estimate:
 
@@ -22,9 +30,8 @@ Differences from the JAX engine, none of which change an estimate:
 - The trace count is an exact int64 instead of an f32 sum.
 
 These raise NotImplementedError until their ROADMAP items land:
-``mis_mode="ref"`` (the two-sample form, Queue 1 item 6), adaptive
-``sample_counts`` and ``light_ris`` (Queue 1 item 7), and the pool
-re-sort ``pool_key_fn`` (HENJOU_POOL_SORT, Queue 1 item 7).
+adaptive ``sample_counts`` and ``light_ris`` (Queue 1 item 7), and the
+pool re-sort ``pool_key_fn`` (HENJOU_POOL_SORT, Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from henjou_torch.math.constants import SHADOW_EPS_REL, TMAX_RAY, ray_eps
 from henjou_torch.math.vec import absdot, dot, length, local_to_world, orthonormal_basis, world_to_local
 from henjou_torch.runtime.camera import Camera, camera_rays
 from henjou_torch.sampling.cmj import CMJState, cmj_1d, cmj_2d, make_cmj_state
-from henjou_torch.sampling.light_sample import light_table, sample_light
+from henjou_torch.sampling.light_sample import intersect_lights, light_table, sample_light
 from henjou_torch.scene.scenedata import FrameScene
 
 
@@ -78,6 +85,7 @@ def wavefront_render(
     occluded_fn=None,
     spp_offset=0,
     pool_key_fn: Optional[Callable] = None,
+    light_isect_fn: Optional[Callable] = None,
     pixel_base: int = 0,
     pixel_count: Optional[int] = None,
     mis_single: bool = False,
@@ -94,10 +102,7 @@ def wavefront_render(
     use_nee = integrator in ("nee", "mis")
     use_mis = integrator == "mis"
     mis_single = bool(mis_single) and use_mis
-    if use_mis and not mis_single:
-        raise NotImplementedError(
-            "mis_mode='ref' (two-sample MIS) is not ported yet: ROADMAP Queue 1 item 6"
-        )
+    light_isect = light_isect_fn or intersect_lights
     if sample_counts is not None or sample_base is not None:
         raise NotImplementedError(
             "adaptive sample_counts are not ported yet: ROADMAP Queue 1 item 7"
@@ -230,6 +235,56 @@ def wavefront_render(
             )
             ok = alive & ~emit_seg & l_valid & ~shadow_blocked & (l_pdf > 0.0)
             lte = lte + torch.where(ok[:, None], contrib_nee, 0.0)
+
+        if use_mis and not mis_single:
+            # ---- independent BSDF-branch trace (the two-sample form) ----
+            # Its hit is only used when it is a light or a miss: a closest
+            # hit against the emissive triangles, then a bounded any-hit
+            # query up to that light (or the scene exit), then the payload
+            # fill fed the synthesized result, so textured lights shade as
+            # in a full trace.
+            brdf_b, local_wi_b, pt_pdf_b, st = bsdf_sample(hit, local_wo, st)
+            wi_b = local_to_world(local_wi_b, t, n, b)
+            cos1_b = absdot(wi_b, n)
+            lane_tmax_b = torch.where(alive, TMAX_RAY, 0.0)
+            t_l, prim_l, u_l, v_l, hit_l, area_l = light_isect(
+                frame, hit.position, wi_b, eps_r, lane_tmax_b
+            )
+            blocked_b = occluded(
+                frame, hit.position, wi_b, eps_r,
+                torch.where(hit_l, t_l * (1.0 - SHADOW_EPS_REL), lane_tmax_b),
+                occluded_fn,
+            )
+            vis_l = hit_l & ~blocked_b
+
+            def synthesized(tri, o_, d_, tn, tx):
+                return (torch.where(vis_l, t_l, torch.inf), torch.where(vis_l, prim_l, -1),
+                        u_l, v_l, vis_l)
+
+            hit_b = closest_hit(frame, sky, hit.position, wi_b, eps_r, lane_tmax_b, synthesized)
+            n_traces = n_traces + alive.sum()
+            cos2_b = absdot(-wi_b, hit_b.normal)
+            dist_b = torch.clamp(length(hit_b.position - hit.position), min=1e-12)
+            inv_g = dist_b * dist_b / torch.clamp(cos2_b, min=1e-12)
+            # reverse light pdf: selection probability of the prim hit over
+            # its area
+            sel_l = lights.sel_by_prim[torch.clamp(prim_l, min=0).long()]
+            rev_pdf = sel_l / torch.clamp(area_l, min=1e-12)
+            lp = torch.where(hit.is_specular, 0.0, rev_pdf * inv_g)
+            w_bsdf = pt_pdf_b / torch.clamp(pt_pdf_b + lp, min=1e-12)
+            contrib_hit = (
+                thr * (w_bsdf * cos1_b / torch.clamp(pt_pdf_b, min=1e-12))[:, None]
+                * hit_b.emission * brdf_b
+            )
+            contrib_miss = (
+                thr * (cos1_b / torch.clamp(pt_pdf_b, min=1e-12))[:, None]
+                * hit_b.emission * brdf_b
+            )
+            take_hit = alive & hit_b.is_hit & hit_b.is_light
+            take_miss = alive & ~hit_l & ~blocked_b
+            lte = lte + torch.where(
+                take_hit[:, None], contrib_hit, torch.where(take_miss[:, None], contrib_miss, 0.0)
+            )
 
         # ---- path continuation ----
         if use_nee:

@@ -8,7 +8,8 @@ counterpart. This module imports neither JAX nor `henjou_tpu`: the arrays
 are read through `numpy.asarray`. Floating-point fields become float32
 tensors (a float64 numpy array would otherwise become a float64 tensor),
 u32/i32 index fields become int64, and flags bool, following the port's
-dtype conventions (scene/scenedata.py).
+dtype conventions (scene/scenedata.py); the cluster packs keep their i32
+`order`, which the kernels read.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import numpy as np
 import torch
 
 from henjou_torch.accel.pallas_binned import BinnedClusters
+from henjou_torch.accel.pallas_cluster import PackedClusters
+from henjou_torch.accel.pallas_cluster_hbm import HbmClusters
+from henjou_torch.accel.pallas_mxu import MxuClusters
 from henjou_torch.runtime.camera import Camera
 from henjou_torch.scene.scenedata import DeviceScene, FrameScene, MaterialTable
 from henjou_torch.texture.atlas import TextureAtlas
@@ -95,6 +99,33 @@ def binned_from_numpy(src, device) -> BinnedClusters:
         group=int(src.group),
         num_groups=int(src.num_groups),
         k=int(src.k),
+    )
+
+
+def packed_from_numpy(src, device) -> PackedClusters:
+    """A JAX `PackedClusters` (or its numpy twin) -> the port's."""
+    planes = {f: _f32(getattr(src, f), device) for f in
+              ("v0x", "v0y", "v0z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z")}
+    return PackedClusters(**planes, order=_i32(src.order, device),
+                          aabb=_f32(src.aabb, device), num_clusters=int(src.num_clusters))
+
+
+def hbm_from_numpy(src, device) -> HbmClusters:
+    """A JAX `HbmClusters` (or its numpy twin) -> the port's."""
+    return HbmClusters(
+        rows=_f32(src.rows, device), order=_i32(src.order, device),
+        aabb=_f32(src.aabb, device), aabb2=_f32(src.aabb2, device),
+        num_clusters=int(src.num_clusters), num_super=int(src.num_super),
+    )
+
+
+def mxu_from_numpy(src, device) -> MxuClusters:
+    """A JAX `MxuClusters` (or its numpy twin) -> the port's."""
+    return MxuClusters(
+        g_rows=_f32(src.g_rows, device), order=_i32(src.order, device),
+        aabb=_f32(src.aabb, device), aabb2=_f32(src.aabb2, device),
+        centers=_f32(src.centers, device),
+        num_clusters=int(src.num_clusters), num_super=int(src.num_super),
     )
 
 

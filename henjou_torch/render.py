@@ -78,42 +78,52 @@ def main(argv=None):
     return 0
 
 
-def _profiled(r, out_dir: str) -> list:
-    """Render under torch.profiler and write the chrome trace, the op table
-    and a summary: the device's busy time (summed kernel time) against
-    the render's wall time, and the ten kernels that took the most."""
-    import os
+def profiled(fn, device, top=10):
+    """Call `fn()` under torch.profiler; returns (its result, the profiler,
+    a summary): the device's busy time (summed kernel time) against the
+    call's wall time, the kernel launch count, and the `top` kernels that
+    took the most device time."""
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    on_cuda = r.device.type == "cuda"
+    on_cuda = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
     with profile(activities=acts) as prof:
         t0 = time.monotonic()
-        written = r.initialize_and_render()
+        result = fn()
+        if on_cuda:
+            torch.cuda.synchronize(device)
         wall_s = time.monotonic() - t0
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json.gz"))
-    avg = prof.key_averages()
-    key = "device_time_total" if on_cuda else "cpu_time_total"
-    with open(os.path.join(out_dir, "ops.txt"), "w") as f:
-        f.write(avg.table(sort_by=key, row_limit=60))
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     summary = dict(
-        device=torch.cuda.get_device_name(r.device) if on_cuda else "cpu",
+        device=torch.cuda.get_device_name(device) if on_cuda else "cpu",
         wall_s=wall_s, device_busy_s=busy_us / 1e6,
         device_idle_share=1.0 - busy_us / 1e6 / max(wall_s, 1e-9) if on_cuda else None,
         n_kernel_launches=len(kernels),
-        top_kernels_s={k: v / 1e6 for k, v in top},
-        frames=r.frame_stats,
+        top_kernels_s={k: v / 1e6 for k, v in ranked},
     )
+    return result, prof, summary
+
+
+def _profiled(r, out_dir: str) -> list:
+    """Render under torch.profiler and write the chrome trace, the op table
+    and the summary of `profiled` with the frame stats."""
+    import os
+
+    written, prof, summary = profiled(r.initialize_and_render, r.device)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json.gz"))
+    key = "device_time_total" if r.device.type == "cuda" else "cpu_time_total"
+    with open(os.path.join(out_dir, "ops.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by=key, row_limit=60))
+    summary["frames"] = r.frame_stats
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return written

@@ -6,11 +6,15 @@ Port of the wavefront half of henjou_tpu/runtime/renderer.py: `build`,
 chunk-granular deadline) and `initialize_and_render` (the time budget and
 the PNG naming). The port renders with the wavefront engine on every
 device; the accelerator is the binned intersector inside the bitonic ray
-sort for scenes over 256 triangles, brute force below.
+sort for scenes over 256 triangles, brute force below. With
+``mis_mode="ref"`` (two-sample MIS) the per-bounce light query is dense
+(`intersect_lights`) up to BINNED_LIGHT_THRESHOLD emissive triangles and
+goes through the binned intersector over the emissive subset above it
+(`make_binned_light_intersector`, cached with the main accel).
 
 Options that select code this slice has not ported raise
 NotImplementedError naming their ROADMAP item (`_check_supported`):
-``engine="masked"``, ``mis_mode="ref"``, ``adaptive``, ``light_ris``,
+``engine="masked"``, ``adaptive``, ``light_ris``,
 ``sampler="sobol"``, ``HENJOU_POOL_SORT=1``, and the Denoise* and Debug
 render modes. Checkpoint/resume, multi-GPU and the hardware canary are
 not in this slice either.
@@ -67,6 +71,10 @@ def _pixel_chunks(n_pixels: int, chunk_max: int):
 class Renderer:
     # bigger frames render in pixel chunks of at most this many pixels
     FILM_CHUNK_PIXELS = 1 << 18
+    # two-sample MIS traces its light query through the binned
+    # intersector over the emissive subset above this many emissive
+    # triangles, densely below
+    BINNED_LIGHT_THRESHOLD = 512
 
     def __init__(self, option: Optional[RenderOption] = None,
                  integrator: Optional[str] = None, device="cuda"):
@@ -79,6 +87,7 @@ class Renderer:
         self.lut = None
         self.bsdf_sample: Optional[Callable] = None
         self._accel_cache = None
+        self._light_accel_cache = None
         self._est_spp_chunk = None
         # per-phase seconds of scene setup, and one entry per rendered frame
         self.setup_stats: dict = {}
@@ -100,8 +109,6 @@ class Renderer:
         unsupported = [
             (opt.engine == "masked",
              "engine='masked' (ROADMAP Queue 1 item 6)"),
-            (self.integrator == "mis" and opt.mis_mode == "ref",
-             "mis_mode='ref' (ROADMAP Queue 1 item 6)"),
             (opt.adaptive, "adaptive sampling (ROADMAP Queue 1 item 7)"),
             (opt.light_ris >= 2, "light_ris (ROADMAP Queue 1 item 7)"),
             (opt.sampler == "sobol", "sampler='sobol' (ROADMAP Queue 1 item 7)"),
@@ -121,6 +128,7 @@ class Renderer:
         """Upload the scene and make the BSDF closures."""
         assert self.scene is not None, "set_scene or load a file first"
         self._accel_cache = None
+        self._light_accel_cache = None
         t0 = time.monotonic()
         self.device_scene = build_device_scene(self.scene, self.device)
         opt = self.option
@@ -253,6 +261,27 @@ class Renderer:
             self._accel_cache = (key, self._select_accel(fs))
         return fs, self._accel_cache[1], self._frame_camera(time_s)
 
+    def light_intersector(self, frame_scene):
+        """The two-sample MIS light query for `frame_scene`: None (dense
+        `intersect_lights`) up to BINNED_LIGHT_THRESHOLD emissive
+        triangles, else the binned intersector over the emissive subset,
+        re-packed whenever the main accel is (same cache key)."""
+        n_lights = int(self.device_scene.num_lights)
+        if n_lights <= self.BINNED_LIGHT_THRESHOLD:
+            return None
+        from henjou_torch.sampling.light_sample import (
+            build_light_accel,
+            make_binned_light_intersector,
+        )
+
+        key = self._accel_cache[0] if self._accel_cache is not None else None
+        if self._light_accel_cache is None or self._light_accel_cache[0] != key:
+            la = build_light_accel(frame_scene.tri_verts.cpu().numpy(),
+                                   self.device_scene.light_prim_ids.cpu().numpy(), self.device)
+            self._light_accel_cache = (key, la)
+            log.info("binned light intersector: %d emissive tris", n_lights)
+        return make_binned_light_intersector(self._light_accel_cache[1])
+
     def render_frame(self, frame: int, deadline: Optional[float] = None) -> dict:
         """Render one frame; returns [H,W,*] numpy AOVs (color, albedo,
         normal, variance, count) plus 'spp_done', 'render_s', 'build_s' and
@@ -289,6 +318,8 @@ class Renderer:
         chunks = _pixel_chunks(n, self.FILM_CHUNK_PIXELS)
         clamp = max(opt.firefly_clamp, 0.0)  # auto (-1) is off outside Denoise modes
         intersect_fn, occluded_fn = self._accel_adapters(accel)
+        light_isect_fn = (self.light_intersector(frame_scene)
+                          if integrator == "mis" and not mis_single else None)
 
         color = np.zeros((n, 3), np.float32)
         albedo = np.zeros((n, 3), np.float32)
@@ -320,6 +351,7 @@ class Renderer:
                     bsdf_pdf=self.bsdf_pdf, integrator=integrator,
                     seed=self._frame_seed(frame), lanes=lanes,
                     intersect_fn=intersect_fn, occluded_fn=occluded_fn,
+                    light_isect_fn=light_isect_fn,
                     spp_offset=spp_done, mis_single=mis_single,
                     pixel_base=base, pixel_count=count, firefly_clamp=clamp,
                 )

@@ -1,5 +1,7 @@
-"""Area-light sampling (port of henjou_tpu/sampling/light_sample.py:
-`_light_select_dist`, `sample_light`, `light_pdf`).
+"""Area-light sampling and the light query of two-sample MIS (port of
+henjou_tpu/sampling/light_sample.py: `_light_select_dist`, `sample_light`,
+`light_pdf`, `intersect_lights`, `LightAccel`, `build_light_accel` and
+`make_binned_light_intersector`).
 
 A light (emissive triangle) is picked by power (luminance x area, the
 default) or uniformly (``HENJOU_LIGHT_SAMPLING=uniform``), then a point is
@@ -8,9 +10,15 @@ the reverse pdf one-sample MIS needs when a BSDF ray hits a light.
 
 The per-light tables do not change during a frame, so `light_table`
 builds them once and the engine passes the result to every bounce (the
-JAX package leaves that hoisting to XLA). Resampled light selection
-(RIS), `intersect_lights` and the binned light intersector serve
-``light_ris`` and ``mis_mode="ref"`` (ROADMAP Queue 1 items 6-7).
+JAX package leaves that hoisting to XLA).
+
+Two-sample MIS (``mis_mode="ref"``) asks, per bounce, which light its
+BSDF-branch ray would hit: `intersect_lights` answers with dense
+Moller-Trumbore against the emissive triangles in chunks of LIGHT_CHUNK,
+and `make_binned_light_intersector` with the binned intersector
+(``csrc/binned.cu`` on CUDA tensors) over the emissive subset, which the
+renderer takes above 512 emissive triangles. Resampled light selection
+(RIS, ``light_ris``) is not ported (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -18,8 +26,11 @@ from __future__ import annotations
 import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from henjou_torch.accel.bruteforce import _mt_chunk
+from henjou_torch.accel.pallas_binned import intersect_binned, pack_binned_np
 from henjou_torch.math.vec import cross, length, normalize
 from henjou_torch.sampling.cmj import CMJState, cmj_1d, cmj_2d
 from henjou_torch.scene.scenedata import FrameScene
@@ -66,6 +77,7 @@ class LightTable(NamedTuple):
     verts: torch.Tensor  # [L,3,3] world
     normals: torch.Tensor  # [L,3,3]
     emission: torch.Tensor  # [L,3]
+    sel_by_prim: torch.Tensor  # [T] selection probability (0 for non-lights)
     pdf_by_prim: torch.Tensor  # [T] reverse area pdf (0 for non-lights)
 
 
@@ -94,6 +106,7 @@ def light_table(frame: FrameScene) -> LightTable:
         verts=frame.tri_verts[dev.light_prim_ids],
         normals=frame.tri_normals[dev.light_prim_ids],
         emission=dev.light_prim_emission,
+        sel_by_prim=sel,
         pdf_by_prim=sel / torch.clamp(_areas(frame.tri_verts), min=1e-12),
     )
 
@@ -139,3 +152,94 @@ def light_pdf(frame: FrameScene, prim: torch.Tensor, table: Optional[LightTable]
     if table is None:
         table = light_table(frame)
     return table.pdf_by_prim[torch.clamp(prim, min=0)]
+
+
+# dense [R, chunk] block width for intersect_lights: bounds the peak
+# intermediate to [R, 512] however many emissive triangles the scene has
+LIGHT_CHUNK = 512
+
+
+def intersect_lights(frame: FrameScene, ray_o, ray_d, tmin, tmax):
+    """Closest hit against the EMISSIVE triangles only: dense
+    Moller-Trumbore in [R, <=LIGHT_CHUNK] chunks with a running best hit,
+    no acceleration structure.
+
+    Returns (t, prim, u, v, hit, area): the intersector contract with the
+    global prim id (i32), plus the hit light's triangle area for the MIS
+    reverse pdf."""
+    dev = frame.device
+    n = ray_o.shape[0]
+    device = ray_o.device
+    t_best = torch.full((n,), torch.inf, device=device)
+    u_b = torch.zeros(n, device=device)
+    v_b = torch.zeros(n, device=device)
+    prim_b = torch.full((n,), -1, dtype=torch.int32, device=device)
+    area_b = torch.zeros(n, device=device)
+    # light_prim_ids is padded to one row for zero-light scenes: gate on
+    # the true count
+    n_l = int(dev.light_prim_ids.shape[0]) if dev.num_lights > 0 else 0
+    if n_l == 0:
+        return t_best, prim_b, u_b, v_b, torch.zeros(n, dtype=torch.bool, device=device), area_b
+    lp = dev.light_prim_ids
+    tv = frame.tri_verts[lp]  # [L,3,3]
+    o = ray_o[:, None, :]
+    d = ray_d[:, None, :]
+    tmin_b = torch.as_tensor(tmin, dtype=torch.float32, device=device).expand(n)[:, None]
+    tmax_b = torch.as_tensor(tmax, dtype=torch.float32, device=device).expand(n)[:, None]
+    for c0 in range(0, n_l, LIGHT_CHUNK):
+        tvc = tv[c0 : c0 + LIGHT_CHUNK]
+        tt, uu, vv, ok = _mt_chunk(o, d, tvc[None, :, 0], tvc[None, :, 1], tvc[None, :, 2],
+                                   tmin_b, tmax_b)
+        t_c, li = torch.min(torch.where(ok, tt, torch.inf), dim=1)  # first minimum
+        better = t_c < t_best
+        t_best = torch.where(better, t_c, t_best)
+        u_b = torch.where(better, uu.gather(1, li[:, None])[:, 0], u_b)
+        v_b = torch.where(better, vv.gather(1, li[:, None])[:, 0], v_b)
+        prim_b = torch.where(better, lp[c0:][li].to(torch.int32), prim_b)
+        area_b = torch.where(better, _areas(tvc)[li], area_b)
+    hit = torch.isfinite(t_best)
+    return t_best, torch.where(hit, prim_b, -1), u_b, v_b, hit, area_b
+
+
+class LightAccel(NamedTuple):
+    """Binned cluster set over the EMISSIVE triangle subset, plus the
+    subset -> global prim map and per-light areas."""
+
+    bc: object  # accel.pallas_binned.BinnedClusters
+    light_prim_ids: torch.Tensor  # [L] i64 global prim ids
+    areas: torch.Tensor  # [L] f32
+
+
+def build_light_accel(tri_verts_np, light_prim_ids_np, device) -> LightAccel:
+    """Pack the emissive subset for `make_binned_light_intersector` (the
+    host numpy build of the main accel) and upload it to `device`."""
+    sub = np.asarray(tri_verts_np, np.float32)[np.asarray(light_prim_ids_np)]
+    e1 = sub[:, 1] - sub[:, 0]
+    e2 = sub[:, 2] - sub[:, 0]
+    return LightAccel(
+        bc=pack_binned_np(sub, device),
+        light_prim_ids=torch.as_tensor(np.asarray(light_prim_ids_np).astype(np.int64),
+                                       device=device),
+        areas=torch.as_tensor(0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1),
+                              dtype=torch.float32, device=device),
+    )
+
+
+def make_binned_light_intersector(light_accel: LightAccel):
+    """`intersect_lights`' replacement for scenes with many emissive
+    triangles: trace the emissive subset with the binned intersector, so
+    the query costs O(clusters kept) instead of O(R * L).
+
+    Returns light_isect(frame, o, d, tmin, tmax) with the
+    `intersect_lights` contract (t, GLOBAL prim id, u, v, hit, area),
+    through `intersect_binned` (the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors)."""
+
+    def light_isect(frame, ray_o, ray_d, tmin, tmax):
+        t, p, u, v, h = intersect_binned(light_accel.bc, ray_o, ray_d, tmin, tmax)
+        safe = torch.clamp(p, min=0).long()
+        prim_g = torch.where(h, light_accel.light_prim_ids[safe].to(torch.int32), -1)
+        area = torch.where(h, light_accel.areas[safe], 0.0)
+        return t, prim_g, u, v, h, area
+
+    return light_isect

@@ -74,7 +74,6 @@ def test_cuda_device_without_cuda_raises():
         dict(render_mode=RenderMode.DENOISE),
         dict(render_mode=RenderMode.DEBUG),
         dict(engine="masked"),
-        dict(mis_mode="ref"),
         dict(adaptive=True),
         dict(sampler="sobol"),
         dict(light_ris=4),
@@ -88,6 +87,59 @@ def test_unported_options_raise(override, monkeypatch):
     r._load_scene_from_option()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.initialize_and_render()
+
+
+def test_cli_renders_mis_ref(tmp_path, monkeypatch):
+    """TPU.mis_mode "ref" in the option file renders two-sample MIS
+    through the CLI: a finite, lit PNG, with more traces than the
+    one-sample form (the branch ray of every bounce)."""
+    import json
+
+    monkeypatch.chdir(ROOT)
+    with open(GALLERY) as f:
+        opt = json.load(f)
+    traces = {}
+    for mode in ("single", "ref"):
+        opt["TPU"]["mis_mode"] = mode
+        path = tmp_path / f"{mode}.json"
+        path.write_text(json.dumps(opt))
+        out, stats = str(tmp_path / mode), str(tmp_path / f"{mode}_stats.json")
+        assert render.main([str(path), "--device", "cpu", "--size", "32x18", "--spp", "2",
+                            "--out", out, "--stats", stats]) == 0
+        assert read_png(out + "_000.png").mean() > 10
+        with open(stats) as f:
+            fr = json.load(f)["frames"][0]
+        assert fr["film_finite"] and fr["spp"] == 2
+        traces[mode] = fr["n_traces"]
+    assert traces["ref"] > traces["single"]
+
+
+def test_renderer_mis_ref_takes_binned_light_query(monkeypatch):
+    """Above BINNED_LIGHT_THRESHOLD emissive triangles the Renderer builds
+    the binned light query once per accel and renders through it."""
+    monkeypatch.chdir(ROOT)
+    r = Renderer(device="cpu")
+    r.load_render_option(GALLERY)
+    r.option = dataclasses.replace(r.option, mis_mode="ref", image_width=16, image_height=8,
+                                   max_spp=1)
+    r._load_scene_from_option()
+    monkeypatch.setattr(Renderer, "BINNED_LIGHT_THRESHOLD", 0)
+    out = r.render_frame(0)
+    key, la = r._light_accel_cache
+    assert key == r._accel_cache[0] and la.light_prim_ids.numel() == r.device_scene.num_lights
+    assert out["spp_done"] == 1 and torch.isfinite(torch.as_tensor(out["color"])).all()
+    r.render_frame(0)
+    assert r._light_accel_cache[1] is la  # reused while the transforms are unchanged
+
+
+def test_masked_engine_still_raises(monkeypatch):
+    monkeypatch.chdir(ROOT)
+    r = Renderer(device="cpu")
+    r.load_render_option(GALLERY)
+    r.option = dataclasses.replace(r.option, engine="masked", mis_mode="ref")
+    r._load_scene_from_option()
+    with pytest.raises(NotImplementedError, match="engine='masked' \\(ROADMAP Queue 1 item 6\\)"):
+        r.render_frame(0)
 
 
 def test_import_never_pulls_in_jax():

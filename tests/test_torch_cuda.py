@@ -72,3 +72,42 @@ def test_binned_kernel_matches_plain(cuda, any_hit):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert 0 < int(k[4].sum()) < n
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["flat", "hbm", "mxu"])
+def test_cluster_kernels_match_plain(cuda, kind, any_hit):
+    """csrc/cluster.cu, cluster_hbm.cu and mxu.cu against their plain
+    versions: equal to the bit (the same arithmetic in the same order,
+    built with --fmad=false)."""
+    from henjou_torch.accel import pallas_cluster as pc
+    from henjou_torch.accel import pallas_cluster_hbm as hbm
+    from henjou_torch.accel import pallas_mxu as mxu
+
+    rng = np.random.default_rng(6)
+    c = rng.uniform(-3, 3, (5000, 1, 3))
+    tris = (c + rng.normal(scale=0.25, size=(5000, 3, 3))).astype(np.float32)
+    mod, pack = {
+        "flat": (pc, lambda: pc.pack_clusters(torch.from_numpy(tris).to(cuda))),
+        "hbm": (hbm, lambda: hbm.pack_clusters_hbm_np(tris, cuda)),
+        "mxu": (mxu, lambda: mxu.pack_clusters_mxu_np(tris, cuda)),
+    }[kind]
+    fn, plain = {
+        "flat": (pc.intersect_pallas, pc.intersect_pallas_plain),
+        "hbm": (hbm.intersect_pallas_hbm, hbm.intersect_pallas_hbm_plain),
+        "mxu": (mxu.intersect_pallas_mxu, mxu.intersect_pallas_mxu_plain),
+    }[kind]
+    packed = pack()
+    n = 4096
+    o = torch.from_numpy(rng.uniform(-4, 4, (n, 3)).astype(np.float32)).to(cuda)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True)).to(cuda)
+    tmax = torch.where(torch.arange(n, device=cuda) % 5 == 0, 0.0, 20.0)
+    before = mod.LAUNCHES
+    k = fn(packed, o, d, 1e-3, tmax, any_hit=any_hit)
+    p = plain(packed, o, d, 1e-3, tmax, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert 0 < int(k[4].sum()) < n and not k[4][tmax == 0].any()

@@ -106,7 +106,7 @@ def test_chunked_render_equals_unchunked():
         assert torch.equal(got, getattr(whole, f)), f
 
 
-@pytest.mark.parametrize("kw", [dict(mis_single=False), dict(light_ris=4), dict(pool_key_fn=lambda o, d: 0)])
+@pytest.mark.parametrize("kw", [dict(light_ris=4), dict(pool_key_fn=lambda o, d: 0)])
 def test_unported_options_raise(kw):
     tf, _, _ = _port_setup()
     args = dict(integrator="mis", mis_single=True, bsdf_eval=tdsp.bsdf_eval, bsdf_pdf=tdsp.bsdf_pdf)
