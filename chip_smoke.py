@@ -40,7 +40,21 @@ prints no result. Phases, each of which raises on failure:
     rows (binned+bitonic, and the two-level kernel in the argsort
     wrapper), each rendered once untimed and once timed: finite films,
     seconds, traces, Mrays/s and the RMSE between the rows;
-12. contest frame 0 as in 10 with ``mis_mode="ref"``.
+12. contest frame 0 as in 10 with ``mis_mode="ref"``;
+13. the payload-carrying bitonic network (``csrc/bitonic_net.cu``, four
+    kernels): every row of the four bitonic-schedule tools
+    (``henjou_torch.tools.exp_bitonic``, ``exp_bitonic2``,
+    ``exp_bitonic3``, ``exp_bitonic4``) at full shape (65,536 elements, 10
+    planes, and 5 where exp_bitonic has them; 136 substages) through its
+    entry-point function, then again with the plain versions: every
+    row's output bit-equal on every plane, the keys sorted on the
+    full-sort rows, and beside those rows the production
+    ``bitonic.bitonic_sort`` and ``torch.argsort(stable=True)`` plus
+    indexing timed on the same planes; then each kernel alone, in every
+    form its wrapper takes, against its plain version at 65,536 x 10;
+    then each full-sort design and each 136-launch row timed twice, by
+    CUDA events around the calls and as the replay of a CUDA graph, which
+    leaves out the host's per-launch cost.
 
 Launch counters are zeroed just before, and read just after, each path
 that drives kernels through a user's entry point: phase 7's kernel
@@ -49,10 +63,16 @@ renders (the cluster intersectors, which no renderer routes), phases 9-10
 slice's path: bitonic, binned and the two-level kernel). Each kernel of a
 path must have grown there. The kernels line reports the bitonic and
 binned counts of phases 9-10, the two-level kernel's of phases 11-12 and
-the flat and matrix kernels' of phase 7. The line before the last is the
+the flat and matrix kernels' of phase 7, and the network kernels' of
+phase 13 (its tools' rows are that path). The line before the last is the
 card's name and power limit; before that, one JSON line with each
-kernel's launches, error against its plain version and times. The last
-line is the result JSON.
+kernel's launches, error against its plain version, times, the bound
+(the least time the card could take for the same work: bytes moved at
+3.35 TB/s against operations at 67 TFLOP/s f32, whichever is larger; an
+intersector's operations are its triangle tests, counted as the
+(ray, cluster) visits of its plain version times 128 triangles times the
+flops of one test) and the time of one library call that computes the
+same function, where there is one. The last line is the result JSON.
 """
 
 from __future__ import annotations
@@ -79,6 +99,28 @@ N_RAYS = 1 << 16
 # tests/test_torch_accel.py's binned-vs-brute-force limit
 TOL_T_REL_FORMULAS = 1e-4
 CLUSTER_KERNELS = ("cluster", "cluster_hbm", "mxu")
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+TRIS_PER_CLUSTER = 128
+# flops of one ray/triangle test, counted from the kernels' code: the
+# binned kernel's Baldwin-Weber test (binned.cu), Moller-Trumbore
+# (common.cuh `mt`), the matrix form's four ten-term sums and epilogue
+FLOPS_PER_TEST = {"binned": 32, "cluster": 46, "cluster_hbm": 46, "mxu": 81}
+RAY_BYTES = 32 + 16  # o, d, tmin, tmax in; t, prim, u, v out
+NET_TOOLS = ("exp_bitonic", "exp_bitonic2", "exp_bitonic3", "exp_bitonic4")
+NET_REPLACES = {
+    "net_substage": "tools/exp_bitonic2.py:73 (kern_a), :91 (kern_b), :120 (kern_d), "
+                    ":201 (kern_g); tools/exp_bitonic4.py:105 (make_loop over x1, x2 and "
+                    "the guard chains :144); tools/exp_bitonic.py:82 (kern_unroll, j >= 1024)",
+    "net_local": "tools/exp_bitonic2.py:109 (kern_c); tools/exp_bitonic.py:82 "
+                 "(kern_unroll, j < 1024)",
+    "net_walk": "tools/exp_bitonic.py:53 (kern_switch); tools/exp_bitonic3.py:59 "
+                "(kern_inplace), :66 (kern_inplace_aliased); tools/exp_bitonic4.py:138 "
+                "(make_loop over x5)",
+    "roll_pass": "tools/exp_bitonic2.py:156 (kern_e), :173 (kern_f)",
+}
 
 
 def log(*args):
@@ -104,6 +146,56 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time for `n_bytes` of memory traffic
+    and `n_ops` f32 operations at the card's peaks."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def intersect_bound(packed, n_rays: int, visits: int, kind: str) -> tuple[float, str]:
+    """The bound of one trace: the rays and hits in and out and every pack
+    tensor read once, against the triangle tests of `visits` (ray,
+    cluster) pairs."""
+    pack_bytes = sum(t.numel() * t.element_size() for t in vars(packed).values()
+                     if isinstance(t, torch.Tensor))
+    return bound(n_rays * RAY_BYTES + pack_bytes,
+                 visits * TRIS_PER_CLUSTER * FLOPS_PER_TEST[kind])
+
+
+def graph_ms(fn, reps: int = 20):
+    """Mean ms of one replay of `fn()` captured in a CUDA graph: the time
+    its kernels hold the device without the host's per-launch cost (a
+    replay submits them all at once). None when the call cannot be
+    captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        log(f"[graph] capture failed: {e}")
+        return None
+    return cuda_ms(graph.replay, reps)
+
+
+def _fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.4f} ms"
+
+
+def argsort_gather(key, *planes):
+    """The library yardstick of a sort: torch.argsort(stable=True) and
+    indexing (the port never calls it on a CUDA tensor)."""
+    perm = torch.argsort(key, stable=True)
+    return (key[perm],) + tuple(p[perm] for p in planes)
 
 
 def phase_sort(dev, results):
@@ -150,13 +242,18 @@ def phase_sort(dev, results):
     # forward, and 4 planes (t, prim, u, v) back
     ms = cuda_ms(lambda: bitonic.bitonic_sort(key, *planes, lane), 20)
     plain_ms = cuda_ms(lambda: bitonic.bitonic_sort_plain(key, *planes, lane), 20)
+    library_ms = cuda_ms(lambda: argsort_gather(key, *planes, lane), 20)
+    n_cols = sum(1 if p.dim() == 1 else p.shape[1] for p in (key, *planes, lane))
     lid = out[-1]
     back4 = (out[3], out[4], out[3], out[4])
     un_ms = cuda_ms(lambda: bitonic.bitonic_unsort(lid, *back4), 20)
     un_plain = cuda_ms(lambda: bitonic.bitonic_unsort_plain(lid, *back4), 20)
-    log(f"[sort] n=65536 x10 columns: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+    log(f"[sort] n=65536 x{n_cols} columns: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"argsort+gather {library_ms:.4f} ms; "
         f"inverse x4 planes: kernel {un_ms:.4f} ms, plain {un_plain:.4f} ms")
+    bound_ms, bound_by = bound(2 * n_cols * key.numel() * 4)
     results["bitonic"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                               inverse_ms=un_ms, inverse_plain_ms=un_plain)
 
 
@@ -235,15 +332,20 @@ def phase_intersect(dev, results):
             name = f"intersect {label} {'any' if any_hit else 'closest'}"
             k = pb.intersect_binned(accel, o, d, 1e-3, any_hit=any_hit)
             torch.cuda.synchronize()
+            pb.VISITS = 0
             p = pb.intersect_binned_plain(accel, o, d, 1e-3, any_hit=any_hit)
+            visits = pb.VISITS
             worst = max(worst, _check_intersections(name, fs.tri_verts, o, d, k, p, any_hit))
             ms = cuda_ms(lambda: pb.intersect_binned(accel, o, d, 1e-3, any_hit=any_hit), 20)
             plain_ms = cuda_ms(lambda: pb.intersect_binned_plain(accel, o, d, 1e-3, any_hit=any_hit), 1)
+            bnd = intersect_bound(accel, o.shape[0], visits, "binned")
             log(f"[{name}] {accel.num_clusters} clusters, group {accel.group}: "
-                f"kernel {ms:.4f} ms/trace, plain {plain_ms:.4f} ms/trace")
-            results.setdefault("binned_times", {})[f"{label}_{'any' if any_hit else 'closest'}"] = (ms, plain_ms)
-    ms, plain_ms = results["binned_times"]["contest_closest"]
-    results["binned"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+                f"kernel {ms:.4f} ms/trace, plain {plain_ms:.4f} ms/trace, "
+                f"{visits} (ray, cluster) visits, bound {bnd[0]:.4f} ms ({bnd[1]})")
+            results.setdefault("binned_times", {})[f"{label}_{'any' if any_hit else 'closest'}"] = (ms, plain_ms, *bnd)
+    ms, plain_ms, bound_ms, bound_by = results["binned_times"]["contest_closest"]
+    results["binned"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
 
 
 def _cluster_kernel(kind):
@@ -278,7 +380,7 @@ def phase_cluster_intersect(dev, results):
         fs, accel, cam = r.frame_scene(0)
         o, d = _test_rays(r, accel, cam, dev, rng)
         for kind in CLUSTER_KERNELS:
-            _, fn, plain, _, build = _cluster_kernel(kind)
+            mod, fn, plain, _, build = _cluster_kernel(kind)
             t0 = time.monotonic()
             packed = build(fs)
             torch.cuda.synchronize()
@@ -288,20 +390,25 @@ def phase_cluster_intersect(dev, results):
                 k = fn(packed, o, d, 1e-3, any_hit=any_hit)
                 torch.cuda.synchronize()
                 e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                mod.VISITS = 0
                 e0.record()
                 p = plain(packed, o, d, 1e-3, any_hit=any_hit)
                 e1.record()
                 torch.cuda.synchronize()
                 plain_ms = e0.elapsed_time(e1)
+                bnd = intersect_bound(packed, o.shape[0], mod.VISITS, kind)
                 err = _check_intersections(name, fs.tri_verts, o, d, k, p, any_hit)
                 ms = cuda_ms(lambda: fn(packed, o, d, 1e-3, any_hit=any_hit), 10)
                 log(f"[{name}] {packed.num_clusters} clusters, pack {pack_s:.2f} s: "
-                    f"kernel {ms:.4f} ms/trace, plain {plain_ms:.4f} ms/trace")
+                    f"kernel {ms:.4f} ms/trace, plain {plain_ms:.4f} ms/trace, "
+                    f"{mod.VISITS} (ray, cluster) visits, bound {bnd[0]:.4f} ms ({bnd[1]})")
                 res = results.setdefault(kind, dict(max_abs_err=0.0, times={}))
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-                res["times"][f"{label}_{'any' if any_hit else 'closest'}"] = (ms, plain_ms)
+                res["times"][f"{label}_{'any' if any_hit else 'closest'}"] = (ms, plain_ms, *bnd)
     for kind in CLUSTER_KERNELS:
-        results[kind]["ms"], results[kind]["plain_ms"] = results[kind]["times"]["contest_closest"]
+        r = results[kind]
+        r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"] = r["times"]["contest_closest"]
+        r["library_ms"] = None
 
 
 def phase_engine(dev):
@@ -544,6 +651,163 @@ def phase_scale(dev):
     return out
 
 
+def _net_forms(bn, st, plain_st):
+    """Each kernel of bitonic_net in every form its wrapper takes, against
+    its plain version on the same [10, 65536] state: yields (kernel, form,
+    kernel output, plain output)."""
+    n = st.shape[1]
+    subs = bn.substages(n)
+    for k, j in ((32, 16), (1024, 512), (16, 16), (n, n // 2), (2, 1)):
+        for per_plane in (False, True):
+            for mode in bn.MODES:
+                if mode == "static" and (k, j) not in bn.STATIC_PAIRS:
+                    continue
+                kw = dict(per_plane=per_plane, mode=mode)
+                yield ("net_substage", f"({k},{j}) {kw}", bn.net_substage(st, k, j, **kw),
+                       bn.net_substage_plain(plain_st, k, j, **kw))
+    for guards in bn.GUARDS:
+        kw = dict(mode="static", guards=guards, lj=0)
+        yield ("net_substage", f"(32,16) {kw}", bn.net_substage(st, 32, 16, **kw),
+               bn.net_substage_plain(plain_st, 32, 16, **kw))
+    in_place = st.clone()
+    bn.net_substage(in_place, 1024, 512, dst=in_place)
+    yield ("net_substage", "(1024,512) in place", in_place,
+           bn.net_substage_plain(plain_st, 1024, 512))
+    for label, lst in (("136 x (32,16)", [(32, 16)] * 136),
+                       ("k <= 1024", [kj for kj in subs if kj[0] <= 1024]),
+                       ("k = 65536, j < 1024", [kj for kj in subs if kj[0] == n and kj[1] < 1024])):
+        yield ("net_local", label, bn.net_local(st, lst), bn.net_local_plain(plain_st, lst))
+    sched = bn.make_schedule(subs, n, st.device)
+    for switch in (True, False):
+        yield ("net_walk", f"switch={switch}", bn.net_walk(st, sched, switch=switch),
+               bn.net_walk_plain(plain_st, sched))
+        yield ("net_walk", f"in place, switch={switch}",
+               bn.net_walk(st.clone(), sched, inplace=True, switch=switch),
+               bn.net_walk_plain(plain_st, sched))
+    odd = bn.make_schedule(subs[:55], n, st.device)
+    yield ("net_walk", "55 substages", bn.net_walk(st, odd), bn.net_walk_plain(plain_st, odd))
+    for per_plane in (False, True):
+        yield ("roll_pass", f"per_plane={per_plane}", bn.roll_pass(st, per_plane=per_plane),
+               bn.roll_pass_plain(plain_st))
+
+
+def phase_bitonic_net(dev, results):
+    """13. Every row of the four bitonic-schedule tools, kernels against
+    plain versions; the yardsticks beside the full-sort rows; each kernel
+    alone. Returns the kernels' launch counts of the rows."""
+    import importlib
+
+    from henjou_torch.accel import bitonic
+    from henjou_torch.accel import bitonic_net as bn
+    from henjou_torch.tools.exp_bitonic import make_input
+    from henjou_torch.tools.exp_bitonic2 import make_g_input
+    from henjou_torch.tools.exp_bitonic2 import make_input as make_uniform_input
+
+    tools = {name: importlib.import_module(f"henjou_torch.tools.{name}") for name in NET_TOOLS}
+    t0 = time.monotonic()
+    for k in bn.LAUNCHES:
+        bn.LAUNCHES[k] = 0
+    rows = {name: tool.run_all(dev, log=lambda line, name=name: log(f"[net {name}] {line}"))
+            for name, tool in tools.items()}
+    launches = dict(bn.LAUNCHES)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"[net] a kernel was not launched by the rows: {launches}")
+    log(f"[launches] bitonic network rows: {launches}")
+    for name, tool in tools.items():
+        plain = tool.run_all(dev, reps=2, plain=True,
+                             log=lambda line, name=name: log(f"[net {name} plain] {line}"))
+        for row, r in rows[name].items():
+            if not torch.equal(r["out"], plain[row]["out"]):
+                raise AssertionError(f"[net] {name} {row!r}: kernel differs from the plain version")
+            if r["ok"] is False:
+                raise AssertionError(f"[net] {name} {row!r}: keys not sorted")
+    x5 = rows["exp_bitonic4"]["X5 dynamic j,k (dyn rolls)"]["out"][0]
+    if not bool((x5[1:] >= x5[:-1]).all()):
+        raise AssertionError("[net] exp_bitonic4 X5: keys not sorted")
+    log(f"[net] every row of {len(NET_TOOLS)} tools bit-equal to its plain version on every plane")
+    # the yardsticks on the inputs of the full-sort rows
+    n = 1 << 16
+    for label, inp in (("exp_bitonic 10-plane", make_input(n, 9)),
+                       ("exp_bitonic 5-plane", make_input(n, 4)),
+                       ("exp_bitonic2 G / exp_bitonic3", make_g_input()),
+                       ("exp_bitonic4 X5", make_uniform_input())):
+        st = torch.from_numpy(inp).to(dev)
+        prod_ms = cuda_ms(lambda: bitonic.bitonic_sort(st[0], *st[1:]), 20)
+        lib_ms = cuda_ms(lambda: argsort_gather(st[0], *st[1:]), 20)
+        log(f"[net] yardsticks, {label} input ({st.shape[0]} planes): bitonic_sort (pair sort + "
+            f"gather) {prod_ms:.4f} ms, argsort+gather {lib_ms:.4f} ms")
+    # each kernel alone, every form, at 65,536 x 10
+    st = torch.from_numpy(make_uniform_input()).to(dev)
+    plain_st = st.clone()
+    worst = dict.fromkeys(bn.LAUNCHES, 0.0)
+    for kernel, form, got, want in _net_forms(bn, st, plain_st):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[net] {kernel} {form}: kernel differs from the plain version")
+        worst[kernel] = max(worst[kernel], float((got.long() - want.long()).abs().max()))
+    log("[net] each kernel in every form bit-equal to its plain version at 65536 x 10")
+    sched = bn.make_schedule(bn.substages(n), n, dev)
+    c_list = [(32, 16)] * 136
+    buf = torch.empty_like(st)
+    timed = {
+        "net_substage": (lambda: bn.net_substage(st, 32, 16, dst=buf, mode="static"),
+                         lambda: bn.net_substage_plain(st, 32, 16, dst=buf, mode="static"),
+                         None, "one stacked (32, 16) substage"),
+        "net_local": (lambda: bn.net_local(st, c_list, dst=buf),
+                      lambda: bn.net_local_plain(st, c_list, dst=buf),
+                      None, "136 x (32, 16) in shared memory (row C)"),
+        "net_walk": (lambda: bn.net_walk(st, sched, switch=True),
+                     lambda: bn.net_walk_plain(st, sched),
+                     lambda: argsort_gather(st[0], *st[1:]), "the full sort, switch (136 substages)"),
+        "roll_pass": (lambda: bn.roll_pass(st, dst=buf), lambda: bn.roll_pass_plain(st, dst=buf),
+                      None, "one stacked roll pass"),
+    }
+    state_bytes = 2 * st.numel() * st.element_size()  # read once, written once
+    for kernel, (fn, plain_fn, lib_fn, what) in timed.items():
+        ms = cuda_ms(fn, 20)
+        plain_ms = cuda_ms(plain_fn, 3)
+        lib_ms = cuda_ms(lib_fn, 20) if lib_fn else None
+        bound_ms, bound_by = bound(state_bytes)
+        results[kernel] = dict(max_abs_err=worst[kernel], ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        log(f"[net] {kernel}, {what}, 65536 x 10: kernel {ms:.4f} ms ({_fmt_ms(graph_ms(fn))} "
+            f"in a CUDA graph), plain {plain_ms:.4f} ms, "
+            f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    # the full-sort designs on the same state, and the 136-launch rows of
+    # exp_bitonic2 and exp_bitonic4: events (host launches included)
+    # against a CUDA graph's replay (without them)
+    from henjou_torch.tools import exp_bitonic2, exp_bitonic4
+    from henjou_torch.tools.exp_bitonic import host_walk
+    from henjou_torch.tools.exp_bitonic2 import sort_per_plane
+
+    subs = bn.substages(n)
+    kops = bn.ops()
+    for tool, names in ((exp_bitonic2, "abdef"), (exp_bitonic4, ("x1", "x2", "x3", "x4"))):
+        for row in names:
+            g_ms = graph_ms(tool.row_fn(row, st, kops, len(subs)))
+            log(f"[net] {tool.__name__.rsplit('.', 1)[1]} row {row.upper()}, {len(subs)} launches: "
+                f"{_fmt_ms(g_ms)} in a CUDA graph"
+                + ("" if g_ms is None else f" ({g_ms / len(subs) * 1e3:.3f} us per launch)"))
+    designs = {
+        "net_walk, switch, double-buffered": lambda: bn.net_walk(st, sched, switch=True),
+        "net_walk, j as read, double-buffered": lambda: bn.net_walk(st, sched),
+        "net_walk, switch, in place": lambda: bn.net_walk(buf.copy_(st), sched, inplace=True,
+                                                          switch=True),
+        "host walk: net_local + net_substage (28 launches)": lambda: host_walk(st, subs, kops),
+        "136 per-plane net_substage (row G)": lambda: sort_per_plane(st, subs, kops),
+        "bitonic_sort (pair sort + gather)": lambda: bitonic.bitonic_sort(st[0], *st[1:]),
+        "argsort + gather (library)": lambda: argsort_gather(st[0], *st[1:]),
+    }
+    for label, fn in designs.items():
+        ms = cuda_ms(fn, 20)
+        g_ms = graph_ms(fn)
+        log(f"[net] full sort 65536 x 10, {label}: {ms:.4f} ms per call (events), "
+            f"{_fmt_ms(g_ms)} in a CUDA graph")
+    log(f"[net] phase 13 in {time.monotonic() - t0:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
@@ -597,24 +861,24 @@ def main() -> int:
     log(f"[launches] two-sample engine phase (cluster kernels): {ref_launches}")
     launches.update(cluster=ref_launches["cluster"], mxu=ref_launches["mxu"],
                     cluster_hbm=slice_launches["cluster_hbm"])
+    # this slice's path: the bitonic-schedule tools' rows
+    launches.update(phase_bitonic_net(dev, results))
 
+    table = [
+        ("bitonic_sort", "bitonic", "bitonic.cu", "henjou_tpu/accel/bitonic.py:54"),
+        ("binned_intersect", "binned", "binned.cu", "henjou_tpu/accel/pallas_binned.py:482"),
+        ("cluster_intersect", "cluster", "cluster.cu", "henjou_tpu/accel/pallas_cluster.py:115"),
+        ("cluster_hbm_intersect", "cluster_hbm", "cluster_hbm.cu",
+         "henjou_tpu/accel/pallas_cluster_hbm.py:111"),
+        ("mxu_intersect", "mxu", "mxu.cu", "henjou_tpu/accel/pallas_mxu.py:156"),
+    ] + [(k, k, "bitonic_net.cu", NET_REPLACES[k]) for k in NET_REPLACES]
     kernels = [
-        dict(name="bitonic_sort", route="cuda", source="henjou_torch/csrc/bitonic.cu",
-             replaces="henjou_tpu/accel/bitonic.py:54", launches=launches["bitonic"],
-             max_abs_err=results["bitonic"]["max_abs_err"], ms=results["bitonic"]["ms"],
-             plain_ms=results["bitonic"]["plain_ms"]),
-        dict(name="binned_intersect", route="cuda", source="henjou_torch/csrc/binned.cu",
-             replaces="henjou_tpu/accel/pallas_binned.py:482", launches=launches["binned"],
-             max_abs_err=results["binned"]["max_abs_err"], ms=results["binned"]["ms"],
-             plain_ms=results["binned"]["plain_ms"]),
+        dict(name=name, route="cuda", source=f"henjou_torch/csrc/{src}", replaces=replaces,
+             launches=launches[key],
+             **{f: results[key][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
+        for name, key, src, replaces in table
     ]
-    for k, replaces in (("cluster", "henjou_tpu/accel/pallas_cluster.py:115"),
-                        ("cluster_hbm", "henjou_tpu/accel/pallas_cluster_hbm.py:111"),
-                        ("mxu", "henjou_tpu/accel/pallas_mxu.py:156")):
-        kernels.append(dict(name=f"{k}_intersect", route="cuda",
-                            source=f"henjou_torch/csrc/{k}.cu", replaces=replaces,
-                            launches=launches[k], max_abs_err=results[k]["max_abs_err"],
-                            ms=results[k]["ms"], plain_ms=results[k]["plain_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

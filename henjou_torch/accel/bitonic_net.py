@@ -1,0 +1,346 @@
+"""Payload-carrying bitonic network: four CUDA kernels and their plain versions.
+
+Port of the kernels of the bitonic-schedule experiments
+(tools/exp_bitonic.py, exp_bitonic2.py, exp_bitonic3.py,
+exp_bitonic4.py), which time variants of the network that
+henjou_tpu/accel/bitonic.py `_sort_kernel` walks. The state is a [P, n]
+int32 tensor: n = 2^m >= 1024 elements, plane 0 the key, the TPU
+kernels' [P, n / 128, 128] planes flattened (`to_state` bitcasts other
+4-byte dtypes, as `bitonic_sort` does).
+
+One substage (k, j): element i compares its key with that of its partner
+i ^ j and, with take_min = ((i & j) == 0) == ((i & k) == 0), takes the
+partner's planes where take_min and key > pkey, or not take_min and
+key < pkey. Equal keys never move. A full sort (the (k, j) list of
+`substages`) is therefore not stable: ties come out in the network's own
+order, which is the JAX kernels' order bit for bit. The production sort,
+accel/bitonic.py's `bitonic_sort`, is stable and orders ties differently.
+
+Entry points; each launches its kernel (``csrc/bitonic_net.cu``) for CUDA
+tensors, runs its plain version (the same name with ``_plain``, built from
+`_substage`, a `torch.where` over i ^ j) for CPU tensors, and raises for
+anything else, including a launch that CUDA refuses:
+
+- `net_substage`: one (k, j) over the state, stacked or per plane, with
+  j and k compile-time, j compile-time and k run-time, or both run-time,
+  or behind a chain of guards;
+- `net_local`: a list of substages with j < TILE, each TILE-element tile
+  in shared memory for the whole list;
+- `net_walk`: a `Schedule` walked in one cooperative launch, in place or
+  double-buffered;
+- `roll_pass`: roll(x, 16) + roll(x, 112) along each 128-element row.
+
+``LAUNCHES[name]`` counts each kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import types
+
+import torch
+
+from henjou_torch.csrc import INT, PTR, bind, check
+
+TILE = 1024  # elements per net_local tile
+MAX_LIST = 256  # substages per net_local call
+MAX_N = 1 << 30
+ROW = 128  # roll_pass row length
+ROLL_SHIFTS = (16, 112)
+GUARDS = (4, 16)  # guard chain lengths of net_substage
+STATIC_PAIRS = ((32, 16), (1024, 512))  # (k, j) compiled as constants
+MAX_STATIC_J = 1 << 16
+MODES = ("dynamic", "static_j", "static")
+
+LAUNCHES = dict.fromkeys(("net_substage", "net_local", "net_walk", "roll_pass"), 0)
+
+
+def substages(n: int) -> list[tuple[int, int]]:
+    """The bitonic sort's substage list [(k, j), ...] for power-of-two n
+    (the port's copy of henjou_tpu/accel/bitonic.py `_substages`)."""
+    out = []
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j >= 1:
+            out.append((k, j))
+            j >>= 1
+        k <<= 1
+    return out
+
+
+def _pow2(x: int) -> bool:
+    return x >= 1 and (x & (x - 1)) == 0
+
+
+def _check_pair(k: int, j: int, n: int) -> None:
+    if not (_pow2(k) and _pow2(j) and j < n and k <= n):
+        raise ValueError(f"substage (k={k}, j={j}) is not valid for n={n}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A substage list and its device-resident [2, L] int32 table (row 0
+    j, row 1 k), checked once against n when it is made."""
+
+    subs: tuple[tuple[int, int], ...]
+    jk: torch.Tensor
+    n: int
+
+
+def make_schedule(subs, n: int, device) -> Schedule:
+    subs = tuple((int(k), int(j)) for k, j in subs)
+    for k, j in subs:
+        _check_pair(k, j, n)
+    rows = [[j for _, j in subs], [k for k, _ in subs]]
+    jk = torch.tensor(rows, dtype=torch.int32).reshape(2, len(subs)).to(device)
+    return Schedule(subs=subs, jk=jk.contiguous(), n=n)
+
+
+def to_state(key: torch.Tensor, *planes: torch.Tensor) -> torch.Tensor:
+    """[1 + len(planes), n] int32 state from [n] tensors of any 4-byte
+    dtype (bitcast, not converted)."""
+    cols = []
+    for x in (key, *planes):
+        if x.dim() != 1 or x.element_size() != 4 or x.shape[0] != key.shape[0]:
+            raise ValueError("key and planes must be [n] tensors of a 4-byte dtype")
+        cols.append(x.contiguous().view(torch.int32))
+    return torch.stack(cols)
+
+
+def _check_state(x: torch.Tensor) -> tuple[int, int]:
+    if x.dim() != 2 or x.dtype != torch.int32 or not x.is_contiguous():
+        raise ValueError(f"the state must be a contiguous [P, n] int32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    p, n = x.shape
+    if p < 1 or not _pow2(n) or n < TILE or n > MAX_N:
+        raise ValueError(f"the state needs P >= 1 planes of n = 2^m in [{TILE}, {MAX_N}], "
+                         f"got {tuple(x.shape)}")
+    return p, n
+
+
+def _out(src: torch.Tensor, dst: torch.Tensor | None) -> torch.Tensor:
+    if dst is None:
+        return torch.empty_like(src)
+    if dst.shape != src.shape or dst.dtype != src.dtype or dst.device != src.device \
+            or not dst.is_contiguous():
+        raise ValueError("dst must be a contiguous tensor like src")
+    return dst
+
+
+def _device(x: torch.Tensor) -> str:
+    """'cpu' or 'cuda'; raises for any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------- the substage ----------------
+
+
+def _substage(x: torch.Tensor, k: int, j: int) -> torch.Tensor:
+    """One substage (k, j) of the state x: the plain version's core."""
+    i = torch.arange(x.shape[1], device=x.device)
+    partner = x[:, i ^ j]
+    take_min = ((i & j) == 0) == ((i & k) == 0)
+    key, pkey = x[0], partner[0]
+    swap = torch.where(take_min, key > pkey, key < pkey)
+    return torch.where(swap, partner, x)
+
+
+def _check_substage(src, dst, k, j, per_plane, mode, guards):
+    _, n = _check_state(src)
+    _check_pair(k, j, n)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "static" and (k, j) not in STATIC_PAIRS:
+        raise ValueError(f"mode 'static' compiles only (k, j) in {STATIC_PAIRS}")
+    if mode == "static_j" and j > MAX_STATIC_J:
+        raise ValueError(f"mode 'static_j' compiles j <= {MAX_STATIC_J}")
+    if guards and (guards not in GUARDS or (k, j) != (32, 16) or per_plane):
+        raise ValueError(f"a guard chain ({GUARDS}) wraps the stacked (32, 16) body only")
+    if per_plane and dst is src:
+        raise ValueError("the per-plane substage cannot run in place")
+    return _out(src, dst)
+
+
+def _guard_fires(guards: int, lj: int) -> bool:
+    return not guards or any(lj == g % 16 for g in range(guards))
+
+
+def net_substage_plain(src, k, j, *, dst=None, per_plane=False, mode="dynamic",
+                       guards=0, lj=0):
+    """Plain version of `net_substage`."""
+    out = _check_substage(src, dst, k, j, per_plane, mode, guards)
+    if _guard_fires(guards, lj):
+        out.copy_(_substage(src, k, j))
+    return out
+
+
+@functools.cache
+def _substage_fn():
+    return bind("henjou_net_substage", [PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, PTR])
+
+
+def net_substage(src, k, j, *, dst=None, per_plane=False, mode="dynamic", guards=0, lj=0):
+    """Substage (k, j) of the [P, n] state `src` into `dst` (a new tensor
+    when None; `src` itself runs in place, except per plane). Stacked, one
+    thread carries a pair's every plane; `per_plane` gives each (pair,
+    plane) its own thread. `mode`: "static" compiles j and k as constants
+    (the pairs of STATIC_PAIRS), "static_j" j only, "dynamic" neither.
+    `guards` (4 or 16) wraps the static (32, 16) body in that many
+    `lj == g % 16` tests; where none passes, dst is left as it was.
+    Returns dst."""
+    out = _check_substage(src, dst, k, j, per_plane, mode, guards)
+    if _device(src) == "cpu":
+        return net_substage_plain(src, k, j, dst=out, per_plane=per_plane, mode=mode,
+                                  guards=guards, lj=lj)
+    p, n = src.shape
+    check(_substage_fn()(src.data_ptr(), out.data_ptr(), p, n, j, k, int(per_plane),
+                         MODES.index(mode), guards, lj, _stream(src)), "henjou_net_substage")
+    LAUNCHES["net_substage"] += 1
+    return out
+
+
+# ---------------- the local run ----------------
+
+
+def _check_local(src, dst, subs):
+    _, n = _check_state(src)
+    subs = [(int(k), int(j)) for k, j in subs]
+    if len(subs) > MAX_LIST:
+        raise ValueError(f"net_local takes at most {MAX_LIST} substages, got {len(subs)}")
+    for k, j in subs:
+        _check_pair(k, j, n)
+        if j >= TILE:
+            raise ValueError(f"net_local takes j < {TILE}, got {j}")
+    return _out(src, dst), subs
+
+
+def net_local_plain(src, subs, *, dst=None):
+    """Plain version of `net_local`."""
+    out, subs = _check_local(src, dst, subs)
+    x = src
+    for k, j in subs:
+        x = _substage(x, k, j)
+    return out.copy_(x)
+
+
+@functools.cache
+def _local_fn():
+    return bind("henjou_net_local", [PTR, PTR, INT, INT, PTR, PTR, INT, PTR])
+
+
+def net_local(src, subs, *, dst=None):
+    """The substages `subs` [(k, j), ...] (each j < TILE, at most
+    MAX_LIST) of the state `src`, in order, into `dst` (new when None; may
+    be `src`). Each TILE-element tile stays in shared memory, every plane,
+    for the whole list. Returns dst."""
+    out, subs = _check_local(src, dst, subs)
+    if _device(src) == "cpu":
+        return net_local_plain(src, subs, dst=out)
+    p, n = src.shape
+    js = (ctypes.c_int64 * max(1, len(subs)))(*[j for _, j in subs])
+    ks = (ctypes.c_int64 * max(1, len(subs)))(*[k for k, _ in subs])
+    check(_local_fn()(src.data_ptr(), out.data_ptr(), p, n, js, ks, len(subs), _stream(src)),
+          "henjou_net_local")
+    LAUNCHES["net_local"] += 1
+    return out
+
+
+# ---------------- the walk ----------------
+
+
+def _check_walk(state, sched, inplace):
+    _, n = _check_state(state)
+    if not isinstance(sched, Schedule) or sched.n != n or sched.jk.device != state.device:
+        raise ValueError(f"the schedule must be a Schedule for n={n} on {state.device}")
+    return state if inplace else torch.empty_like(state)
+
+
+def net_walk_plain(state, sched, *, inplace=False, switch=False):
+    """Plain version of `net_walk`."""
+    dst = _check_walk(state, sched, inplace)
+    x = state
+    for k, j in sched.subs:
+        x = _substage(x, k, j)
+    return dst.copy_(x)
+
+
+@functools.cache
+def _walk_fn():
+    return bind("henjou_net_walk", [PTR, PTR, PTR, INT, INT, PTR, INT, INT, INT, PTR])
+
+
+def net_walk(state, sched, *, inplace=False, switch=False):
+    """Every substage of the Schedule `sched` over the state, in one
+    cooperative launch with a grid-wide barrier between substages.
+    `inplace`: walks `state` itself and returns it; otherwise the result
+    goes to a new tensor through a scratch buffer. `switch`:
+    each j runs code compiled for it, picked by a switch on log2 j;
+    otherwise j is used as read. Raises when CUDA refuses the
+    cooperative launch."""
+    if _device(state) == "cpu":
+        return net_walk_plain(state, sched, inplace=inplace)
+    dst = _check_walk(state, sched, inplace)
+    p, n = state.shape
+    buf = dst if inplace else torch.empty_like(state)
+    check(_walk_fn()(state.data_ptr(), dst.data_ptr(), buf.data_ptr(), p, n,
+                     sched.jk.data_ptr(), len(sched.subs), int(inplace), int(switch),
+                     _stream(state)), "henjou_net_walk")
+    LAUNCHES["net_walk"] += 1
+    return dst
+
+
+# ---------------- the roll pass ----------------
+
+
+def _check_roll(src, dst):
+    _check_state(src)
+    if dst is src:
+        raise ValueError("roll_pass cannot run in place")
+    return _out(src, dst)
+
+
+def roll_pass_plain(src, *, dst=None, per_plane=False):
+    """Plain version of `roll_pass`."""
+    out = _check_roll(src, dst)
+    x = src.view(src.shape[0], -1, ROW)
+    a, b = (torch.roll(x, s, dims=2) for s in ROLL_SHIFTS)
+    return out.copy_((a + b).view_as(src))  # int32 adds wrap, as the kernel's
+
+
+@functools.cache
+def _roll_fn():
+    return bind("henjou_roll_pass", [PTR, PTR, INT, INT, INT, PTR])
+
+
+def roll_pass(src, *, dst=None, per_plane=False):
+    """dst = roll(src, 16) + roll(src, 112) along each 128-element row of
+    every plane (np.roll's direction, which is pltpu.roll's), wrapping on
+    overflow, into `dst` (new when None; not `src`). `per_plane` gives
+    each (element, plane) its own thread. Returns dst."""
+    out = _check_roll(src, dst)
+    if _device(src) == "cpu":
+        return roll_pass_plain(src, dst=out, per_plane=per_plane)
+    p, n = src.shape
+    check(_roll_fn()(src.data_ptr(), out.data_ptr(), p, n, int(per_plane), _stream(src)),
+          "henjou_roll_pass")
+    LAUNCHES["roll_pass"] += 1
+    return out
+
+
+def ops(plain: bool = False) -> types.SimpleNamespace:
+    """The four entry points, or with `plain` their plain versions (which
+    run on any device), under the same names."""
+    if plain:
+        return types.SimpleNamespace(net_substage=net_substage_plain, net_local=net_local_plain,
+                                     net_walk=net_walk_plain, roll_pass=roll_pass_plain)
+    return types.SimpleNamespace(net_substage=net_substage, net_local=net_local,
+                                 net_walk=net_walk, roll_pass=roll_pass)

@@ -24,7 +24,9 @@ kernel's experiment knobs. The device refresh for animated frames
 (`plan_binned_order`, `build_binned_from_order`) is a later slice: until
 then the renderer re-runs the host pack for each distinct transform set.
 
-``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel.
+``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel;
+``VISITS`` the (ray, cluster) pairs the plain version tested triangles
+for, the work that chip_smoke.py's bound counts.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ MAX_FINE_CLUSTERS = 512
 MAX_GROUPS = 256
 
 LAUNCHES = 0
+VISITS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +195,7 @@ def _intersect_plain(bc: BinnedClusters, ray_o, ray_d, tmin, tmax, any_hit):
     then clusters, in index order; per-ray slab culls against
     [tmin, best_t]; dense Baldwin-Weber tests of the kept rays against the
     cluster's K triangles. Returns (t, prim, u, v) before the miss fill."""
+    global VISITS
     r = ray_o.shape[0]
     kk = bc.k
     inv = _safe_inv(ray_d)
@@ -217,6 +221,7 @@ def _intersect_plain(bc: BinnedClusters, ray_o, ray_d, tmin, tmax, any_hit):
             idx = idx_g[keep_c]
             if idx.numel() == 0:
                 continue
+            VISITS += idx.numel()
             cl = rows[c]  # [16, K]
             o = ray_o[idx][:, :, None]  # [n,3,1]
             d = ray_d[idx][:, :, None]

@@ -28,7 +28,9 @@ intersectors (`pallas_cluster_hbm.py`, `pallas_mxu.py`); the binned
 intersector takes `K`, `_BIG`, `_safe_inv` and `_slab` from here, as the
 JAX package's takes its constants.
 
-``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel.
+``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel;
+``VISITS`` the (ray, cluster) pairs the plain version tested triangles
+for, the work that chip_smoke.py's bound counts.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ RAY_TILE = 512
 _BIG = 3.0e38
 
 LAUNCHES = 0
+VISITS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,6 +284,7 @@ def _intersect_plain(pc: PackedClusters, ray_o, ray_d, tmin, tmax, any_hit):
     """Plain PyTorch version of cluster.cu: every cluster in index order,
     a per-ray slab cull against [tmin, best_t], Moller-Trumbore of the
     kept rays against the cluster's K triangles."""
+    global VISITS
     inv = _safe_inv(ray_d)
     best = _new_best(tmax)
     planes = pc.planes()
@@ -288,6 +292,7 @@ def _intersect_plain(pc: PackedClusters, ray_o, ray_d, tmin, tmax, any_hit):
         idx = _kept(pc.aabb, c, ray_o, inv, tmin, best, any_hit)
         if idx.numel() == 0:
             continue
+        VISITS += idx.numel()
         tt, uu, vv, ok = _mt(ray_o[idx], ray_d[idx], *(p[c] for p in planes),
                              tmin[idx], best[0][idx])
         _take(best, idx, ok, tt, uu, vv, pc.order[c], any_hit)

@@ -18,7 +18,9 @@ walk vectorised over the rays, which agrees with the kernel to the ulp.
 The TPU kernel's per-tile frustum pre-pass and far plane are not ported:
 for one ray its own slab test subsumes both.
 
-``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel.
+``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel;
+``VISITS`` the (ray, cluster) pairs the plain version tested triangles
+for, the work that chip_smoke.py's bound counts.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from henjou_torch.math.constants import TMAX_RAY
 SC = 16  # clusters per supercluster (SC*K = 2048 triangles)
 
 LAUNCHES = 0
+VISITS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +190,7 @@ def _intersect_plain(hc: HbmClusters, ray_o, ray_d, tmin, tmax, any_hit):
     clusters, in index order, with per-ray slab culls against
     [tmin, best_t]; Moller-Trumbore of the kept rays against each kept
     cluster's K triangles."""
+    global VISITS
     inv = _safe_inv(ray_d)
     best = _new_best(tmax)
     rows = hc.rows.view(-1, 16, K)
@@ -199,6 +203,7 @@ def _intersect_plain(hc: HbmClusters, ray_o, ray_d, tmin, tmax, any_hit):
             idx = _kept(hc.aabb, c, ray_o, inv, tmin, best, any_hit, idx2)
             if idx.numel() == 0:
                 continue
+            VISITS += idx.numel()
             tt, uu, vv, ok = _mt(ray_o[idx], ray_d[idx], *rows[c, :9],
                                  tmin[idx], best[0][idx])
             _take(best, idx, ok, tt, uu, vv, hc.order[c], any_hit)

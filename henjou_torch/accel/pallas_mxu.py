@@ -19,7 +19,9 @@ which sums the same ten terms in the same order with explicit products
 and adds, vectorised over the rays: `torch.matmul` is not used, because
 its summation order on the card is unspecified. The two agree to the ulp.
 
-``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel.
+``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel;
+``VISITS`` the (ray, cluster) pairs the plain version tested triangles
+for, the work that chip_smoke.py's bound counts.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ NF = 16  # feature rows (10 used, padded to a sublane multiple)
 _NU = 10  # feature rows used
 
 LAUNCHES = 0
+VISITS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +186,7 @@ def _intersect_plain(mc: MxuClusters, ray_o, ray_d, tmin, tmax, any_hit):
     """Plain PyTorch version of mxu.cu: the two-level walk of the HBM
     kernel; per kept cluster the four numerators as explicit ten-term
     sums, then the TPU kernel's epilogue."""
+    global VISITS
     inv = _safe_inv(ray_d)
     best = _new_best(tmax)
     g_blocks = mc.g_rows.view(-1, NF, 4 * K)
@@ -196,6 +200,7 @@ def _intersect_plain(mc: MxuClusters, ray_o, ray_d, tmin, tmax, any_hit):
             keep = _kept(mc.aabb, c, ray_o, inv, tmin, best, any_hit, idx2)
             if keep.numel() == 0:
                 continue
+            VISITS += keep.numel()
             sel = torch.searchsorted(idx2, keep)  # rows of f2 for `keep`
             out = _numerators([x[sel] for x in f2], g_blocks[c])
             det, u_num, v_num, t_num = out.split(K, dim=1)

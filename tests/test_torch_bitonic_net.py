@@ -1,0 +1,312 @@
+"""Port parity of the bitonic-schedule experiments (tools/exp_bitonic*.py).
+
+Each JAX experiment kernel runs through ``pl.pallas_call(...,
+interpret=True)`` at a small size (n = 1024 or 2048 elements, P = 3 or 5
+planes), its module globals (S, P, ITERS, SUBS, N) set with monkeypatch,
+and the port's row (henjou_torch/tools/exp_bitonic*.py) runs on the same
+input on the CPU, where the kernel wrappers take their plain versions.
+The two must be equal to the bit on every plane. Keys are drawn in
+[0, 32) so that ties occur: the network is not stable, and the port must
+keep the TPU kernels' tie order. The roll rows are held to a numpy
+formula and to the JAX kernels started from the input (their output
+buffer aliased to it; unaliased, the JAX kernels read it uninitialised).
+"""
+
+import functools
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from henjou_torch.accel import bitonic_net as bn
+from henjou_torch.tools import exp_bitonic as t1
+from henjou_torch.tools import exp_bitonic2 as t2
+from henjou_torch.tools import exp_bitonic3 as t3
+from henjou_torch.tools import exp_bitonic4 as t4
+from henjou_tpu.accel.bitonic import _substages
+
+# one intra-op thread: the test lane runs several pytest workers at once
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LANES = 128
+S = 16  # 2048 elements
+S_UNROLLED = 8  # 1024 elements (55 substages, odd) for the fully unrolled kernels
+ITERS = 6  # even: the last iteration writes the output buffer
+
+
+@functools.cache
+def _jax_tool(name):
+    """tools/<name>.py, imported by path (tools/ is not a package)."""
+    path = os.path.join(ROOT, "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_jax_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(*_):
+    pass
+
+
+def _input(p, n, seed=0):
+    """[p, n] int32: keys in [0, 32) (ties), planes over the int32 range."""
+    rng = np.random.default_rng(seed)
+    st = rng.integers(-2**31, 2**31 - 1, (p, n)).astype(np.int32)
+    st[0] = rng.integers(0, 32, n)
+    return st
+
+
+def _pallas(kern, inp, *, smem=(), scratch=True, alias=False):
+    """Run `kern` in interpret mode on the [p, n] array `inp` as [p, s,
+    128] VMEM planes, after the SMEM arguments `smem`; returns [p, n]."""
+    p, n = inp.shape
+    shape = (p, n // LANES, LANES)
+    kw = {"input_output_aliases": {len(smem): 0}} if alias else {}
+    out = pl.pallas_call(
+        kern,
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * len(smem)
+        + [pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct(shape, jnp.int32),
+        scratch_shapes=[pltpu.VMEM(shape, jnp.int32)] if scratch else [],
+        interpret=True,
+        **kw,
+    )(*[jnp.asarray(a) for a in smem], jnp.asarray(inp.reshape(shape)))
+    return np.asarray(out).reshape(p, n)
+
+
+def _equal(port_out, jax_out):
+    got = port_out.cpu().numpy()
+    assert got.shape == jax_out.shape
+    for p in range(got.shape[0]):
+        assert np.array_equal(got[p], jax_out[p]), f"plane {p} differs"
+
+
+def _np_substage(x, k, j):
+    """numpy reference of one substage: partner i ^ j, strict compares."""
+    i = np.arange(x.shape[1])
+    partner = x[:, i ^ j]
+    take_min = ((i & j) == 0) == ((i & k) == 0)
+    swap = np.where(take_min, x[0] > partner[0], x[0] < partner[0])
+    return np.where(swap, partner, x)
+
+
+def _np_roll(x, iters):
+    """numpy reference of `iters` roll passes, wrapping int32."""
+    y = x.reshape(x.shape[0], -1, LANES).astype(np.int64)
+    for _ in range(iters):
+        y = (np.roll(y, 16, axis=2) + np.roll(y, 112, axis=2)).astype(np.int32).astype(np.int64)
+    return y.astype(np.int32).reshape(x.shape)
+
+
+# ---------------- exp_bitonic.py: kern_switch, kern_unroll ----------------
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("variant", ["switch", "unroll"])
+def test_exp1_kernels_match_port(variant, p):
+    e1 = _jax_tool("exp_bitonic")
+    n = 1024  # 55 substages: odd, so the JAX kernels copy buf to out
+    s = n // LANES
+    subs = _substages(n)
+    inp = _input(p, n, seed=p)
+    if variant == "switch":
+        jk = np.asarray([[j.bit_length() - 1 for _, j in subs], [k for k, _ in subs]], np.int32)
+        kern = functools.partial(e1.kern_switch, n_sub=len(subs), s=s, n_j=n.bit_length() - 1)
+        ref = _pallas(kern, inp, smem=(jk,))
+    else:
+        ref = _pallas(functools.partial(e1.kern_unroll, subs=subs, s=s), inp)
+    row = t1.run_variant("row", n, p - 1, variant, "cpu", state=inp, reps=0, log=_quiet)
+    _equal(row["out"], ref)
+    assert row["ok"]
+
+
+# ---------------- exp_bitonic2.py: kern_a .. kern_g ----------------
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("row", ["a", "b", "c", "d"])
+def test_exp2_substage_kernels_match_port(monkeypatch, row, p):
+    e2 = _jax_tool("exp_bitonic2")
+    for name, v in (("S", S), ("P", p), ("ITERS", ITERS)):
+        monkeypatch.setattr(e2, name, v)
+    inp = _input(p, S * LANES, seed=10 + p)
+    ref = _pallas(getattr(e2, f"kern_{row}"), inp)
+    out = t2.run("row", row, "cpu", s=S, p=p, iters=ITERS, state=inp, reps=0, log=_quiet)["out"]
+    _equal(out, ref)
+    # one substage's result, as the loop of idempotent substages leaves
+    k, j = (1024, 512) if row == "b" else (32, 16)
+    assert np.array_equal(out.numpy(), _np_substage(inp, k, j))
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("row", ["e", "f"])
+def test_exp2_roll_kernels_match_port(monkeypatch, row, p):
+    """Rows E and F against numpy's roll and against the JAX kernels run
+    from the input (output aliased to the input)."""
+    e2 = _jax_tool("exp_bitonic2")
+    for name, v in (("S", S), ("P", p), ("ITERS", ITERS)):
+        monkeypatch.setattr(e2, name, v)
+    inp = _input(p, S * LANES, seed=20)
+    out = t2.run("row", row, "cpu", s=S, p=p, iters=ITERS, state=inp, reps=0, log=_quiet)["out"]
+    assert np.array_equal(out.numpy(), _np_roll(inp, ITERS))
+    _equal(out, _pallas(getattr(e2, f"kern_{row}"), inp, alias=True))
+
+
+def test_pltpu_roll_direction_is_torch_roll():
+    """roll_pass's plain version assumes pltpu.roll shifts as np.roll and
+    torch.roll do (toward higher indices); check one asymmetric shift."""
+    x = np.arange(8 * LANES, dtype=np.int32).reshape(8, LANES)
+
+    def kern(x_ref, o_ref):
+        o_ref[:] = pltpu.roll(x_ref[:], 16, axis=1)
+
+    got = pl.pallas_call(kern, out_shape=jax.ShapeDtypeStruct(x.shape, jnp.int32),
+                         interpret=True)(jnp.asarray(x))
+    assert np.array_equal(np.asarray(got), torch.roll(torch.from_numpy(x), 16, dims=1).numpy())
+
+
+@pytest.mark.parametrize("p", [3, 5])
+def test_exp2_full_schedule_kernel_matches_port(monkeypatch, p):
+    e2 = _jax_tool("exp_bitonic2")
+    monkeypatch.setattr(e2, "S", S_UNROLLED)
+    monkeypatch.setattr(e2, "P", p)
+    inp = _input(p, S_UNROLLED * LANES, seed=30 + p)
+    ref = _pallas(functools.partial(e2.kern_g, subs=_substages(S_UNROLLED * LANES)), inp)
+    row = t2.run_g("cpu", s=S_UNROLLED, p=p, state=inp, reps=0, log=_quiet)
+    _equal(row["out"], ref)
+    assert row["ok"]
+
+
+# ---------------- exp_bitonic3.py: kern_inplace, kern_inplace_aliased ----------------
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("kind", ["copy", "aliased"])
+def test_exp3_inplace_kernels_match_port(monkeypatch, kind, p):
+    e3 = _jax_tool("exp_bitonic3")
+    n = S_UNROLLED * LANES
+    for name, v in (("S", S_UNROLLED), ("P", p), ("N", n), ("SUBS", _substages(n))):
+        monkeypatch.setattr(e3, name, v)
+    inp = _input(p, n, seed=40)
+    kern = e3.kern_inplace if kind == "copy" else e3.kern_inplace_aliased
+    ref = _pallas(kern, inp, scratch=False, alias=kind == "aliased")
+    row = t3.run("row", kind, "cpu", s=S_UNROLLED, p=p, state=inp, reps=0, log=_quiet)
+    _equal(row["out"], ref)
+    assert row["ok"]
+
+
+# ---------------- exp_bitonic4.py: make_loop variants ----------------
+
+
+@pytest.mark.parametrize("p", [3, 5])
+@pytest.mark.parametrize("row", ["x1", "x2", "x5", "x3", "x4"])
+def test_exp4_loop_kernels_match_port(monkeypatch, row, p):
+    """The make_loop kernels over x1, x2, x5 and the guard chains, with
+    the JAX script's tables: the schedule's (j, k) for x1, x2 and x5, a
+    zero j row for the guards. ITERS is the whole schedule of n = 2048,
+    so X5 is a full sort; X2 passes k == j = 16 on four iterations."""
+    e4 = _jax_tool("exp_bitonic4")
+    n = S * LANES
+    subs = _substages(n)
+    for name, v in (("S", S), ("P", p), ("ITERS", len(subs))):
+        monkeypatch.setattr(e4, name, v)
+    jk = np.asarray([[j for _, j in subs], [k for k, _ in subs]], np.int32)
+    fn = {"x1": e4.x1, "x2": e4.x2, "x5": e4.x5,
+          "x3": e4.guard_chain(4), "x4": e4.guard_chain(16)}[row]
+    if row in ("x3", "x4"):
+        jk = np.stack([jk[0] * 0, jk[1]])
+    inp = _input(p, n, seed=50)
+    ref = _pallas(e4.make_loop(fn), inp, smem=(jk,))
+    out = t4.run("row", row, "cpu", s=S, p=p, iters=len(subs), state=inp, reps=0, log=_quiet)["out"]
+    _equal(out, ref)
+    if row == "x5":
+        assert np.array_equal(out[0].numpy(), np.sort(inp[0]))
+
+
+# ---------------- the plain network and the wrappers ----------------
+
+
+def test_plain_network_matches_numpy_and_keeps_pairs():
+    """A full sort through `net_walk` (plain on the CPU) equals the numpy
+    network substage by substage, and every (key, payload) column is
+    kept: the output columns are a permutation of the input columns."""
+    n, p = 1024, 4
+    inp = _input(p, n, seed=60)
+    inp[1] = np.arange(n)  # a lane id
+    x = inp
+    for k, j in bn.substages(n):
+        x = _np_substage(x, k, j)
+    state = torch.from_numpy(inp)
+    out = bn.net_walk(state, bn.make_schedule(bn.substages(n), n, "cpu"))
+    assert np.array_equal(out.numpy(), x)
+    assert np.array_equal(out[0].numpy(), np.sort(inp[0]))
+    assert np.array_equal(inp[:, out[1].numpy()], out.numpy())
+
+
+def test_host_walk_and_local_runs_equal_the_walk():
+    """The host-walked sort (net_local runs plus net_substage for j >=
+    TILE) and the per-plane walk of row G give the walk's result at
+    n = 4096, where the schedule has substages with j >= TILE."""
+    n = 4096
+    state = torch.from_numpy(_input(3, n, seed=70))
+    subs = bn.substages(n)
+    walked = bn.net_walk(state, bn.make_schedule(subs, n, "cpu"))
+    ops = bn.ops()
+    assert torch.equal(t1.host_walk(state, subs, ops), walked)
+    assert torch.equal(t2.sort_per_plane(state, subs, ops), walked)
+    inplace = state.clone()
+    assert bn.net_walk(inplace, bn.make_schedule(subs, n, "cpu"), inplace=True) is inplace
+    assert torch.equal(inplace, walked)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    state = torch.from_numpy(_input(3, 1024))
+    with pytest.raises(ValueError):
+        bn.net_substage(state, 32, 16, dst=state, per_plane=True)  # per plane in place
+    with pytest.raises(ValueError):
+        bn.net_substage(state, 64, 16, mode="static")  # not a compiled pair
+    with pytest.raises(ValueError):
+        bn.net_substage(state, 32, 16, guards=3)
+    with pytest.raises(ValueError):
+        bn.net_local(state, [(2048, 1024)])  # j >= TILE
+    with pytest.raises(ValueError):
+        bn.roll_pass(state, dst=state)
+    with pytest.raises(ValueError):
+        bn.net_walk(state, bn.make_schedule(bn.substages(2048), 2048, "cpu"))
+    with pytest.raises(ValueError):
+        bn.net_substage(torch.zeros((3, 1000), dtype=torch.int32), 2, 1)
+    with pytest.raises(ValueError):
+        bn.make_schedule([(4, 3)], 1024, "cpu")
+
+
+def test_to_state_bitcasts_payloads():
+    key = torch.arange(1024, dtype=torch.int32)
+    f = torch.linspace(-1, 1, 1024)
+    st = bn.to_state(key, f)
+    assert st.dtype == torch.int32 and torch.equal(st[1].view(torch.float32), f)
+
+
+# ---------------- the four tools' entry points ----------------
+
+
+@pytest.mark.parametrize("tool,argv,sizes,names", [
+    (t1, [], dict(n=1024, reps=1), [v[0] for v in t1.VARIANTS]),
+    (t2, ["g"], dict(s=S, p=3, iters=ITERS, reps=1), [r[0] for r in t2.ROWS] + [t2.G_NAME]),
+    (t3, ["all"], dict(s=S, p=3, reps=1), [r[1] for r in t3.ROWS]),
+    (t4, [], dict(s=S, p=3, iters=len(_substages(S * LANES)), reps=1), [r[0] for r in t4.ROWS]),
+], ids=["exp_bitonic", "exp_bitonic2", "exp_bitonic3", "exp_bitonic4"])
+def test_tool_main_runs_every_row_on_the_cpu(capsys, tool, argv, sizes, names):
+    assert tool.main(argv + ["--device", "cpu"], **sizes) == 0
+    out = capsys.readouterr().out
+    for name in names:
+        line = next(ln for ln in out.splitlines() if ln.startswith(name))
+        assert "ok=False" not in line and " run " in line
+    assert out.count("ok=True") == {t1: 4, t2: 1, t3: 3, t4: 0}[tool]

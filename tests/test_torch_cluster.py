@@ -202,3 +202,26 @@ def test_zero_tmax_lanes_miss(kind):
     assert not got[4][tmax == 0].any()
     assert (got[4] != ref[4]).sum() <= 1
     assert int(got[4].sum()) > 30
+
+
+@pytest.mark.parametrize("kind", ["flat", "hbm", "mxu", "binned"])
+def test_plain_counts_cluster_visits(kind):
+    """VISITS, the work chip_smoke.py's bound counts, grows by the (ray,
+    cluster) pairs a plain version tests triangles for: none for rays with
+    tmax 0, at least one per hit ray and at most rays x cluster slots (a
+    pack's padding clusters have inverted boxes, which pass a slab test,
+    as in the JAX packs)."""
+    from henjou_torch.accel import pallas_binned as tpb
+
+    tris, o, d = _scene()
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    if kind == "binned":
+        mod, fn, pack = tpb, tpb.intersect_binned, tpb.pack_binned_np(tris, "cpu")
+    else:
+        mod = {"flat": tpc, "hbm": thbm, "mxu": tmxu}[kind]
+        fn, pack = _KERNELS[kind][1], _packs()[kind][1]
+    mod.VISITS = 0
+    fn(pack, to, td, 1e-3, 0.0)
+    assert mod.VISITS == 0
+    hit = fn(pack, to, td, 1e-3)[4]
+    assert 0 < int(hit.sum()) <= mod.VISITS <= N_RAY * pack.aabb.shape[1]

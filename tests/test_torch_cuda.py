@@ -111,3 +111,72 @@ def test_cluster_kernels_match_plain(cuda, kind, any_hit):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert 0 < int(k[4].sum()) < n and not k[4][tmax == 0].any()
+
+
+@pytest.fixture
+def net_state(cuda):
+    """A [10, 65536] int32 network state on the card, keys with ties."""
+    rng = np.random.default_rng(7)
+    st = rng.integers(-2**31, 2**31 - 1, (10, 1 << 16)).astype(np.int32)
+    st[0] = rng.integers(0, 1 << 12, 1 << 16)
+    return torch.from_numpy(st).to(cuda)
+
+
+@pytest.mark.parametrize("k,j,per_plane,mode,guards", [
+    (32, 16, False, "static", 0), (1024, 512, True, "static", 0),
+    (16, 16, False, "static_j", 0), (1 << 16, 1 << 15, True, "static_j", 0),
+    (2, 1, False, "dynamic", 0), (4096, 2048, True, "dynamic", 0),
+    (32, 16, False, "static", 4), (32, 16, False, "static", 16),
+])
+def test_net_substage_kernel_matches_plain(net_state, k, j, per_plane, mode, guards):
+    from henjou_torch.accel import bitonic_net as bn
+
+    kw = dict(per_plane=per_plane, mode=mode, guards=guards, lj=0)
+    before = bn.LAUNCHES["net_substage"]
+    out = bn.net_substage(net_state, k, j, **kw)
+    ref = bn.net_substage_plain(net_state, k, j, **kw)
+    torch.cuda.synchronize()
+    assert bn.LAUNCHES["net_substage"] == before + 1
+    assert torch.equal(out, ref)
+
+
+def test_net_local_kernel_matches_plain(net_state):
+    from henjou_torch.accel import bitonic_net as bn
+
+    subs = [kj for kj in bn.substages(1 << 16) if kj[0] <= 1024]
+    for lst in (subs, [(32, 16)] * 136):
+        before = bn.LAUNCHES["net_local"]
+        out = bn.net_local(net_state, lst)
+        torch.cuda.synchronize()
+        assert bn.LAUNCHES["net_local"] == before + 1
+        assert torch.equal(out, bn.net_local_plain(net_state, lst))
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("switch", [False, True])
+def test_net_walk_kernel_matches_plain(net_state, inplace, switch):
+    """The cooperative walk of the full 136-substage schedule."""
+    from henjou_torch.accel import bitonic_net as bn
+
+    n = net_state.shape[1]
+    sched = bn.make_schedule(bn.substages(n), n, net_state.device)
+    ref = bn.net_walk_plain(net_state, sched)
+    before = bn.LAUNCHES["net_walk"]
+    state = net_state.clone() if inplace else net_state
+    out = bn.net_walk(state, sched, inplace=inplace, switch=switch)
+    torch.cuda.synchronize()
+    assert bn.LAUNCHES["net_walk"] == before + 1
+    assert (out is state) == inplace
+    assert torch.equal(out, ref)
+    assert bool((out[0][1:] >= out[0][:-1]).all())
+
+
+@pytest.mark.parametrize("per_plane", [False, True])
+def test_roll_pass_kernel_matches_plain(net_state, per_plane):
+    from henjou_torch.accel import bitonic_net as bn
+
+    before = bn.LAUNCHES["roll_pass"]
+    out = bn.roll_pass(net_state, per_plane=per_plane)
+    torch.cuda.synchronize()
+    assert bn.LAUNCHES["roll_pass"] == before + 1
+    assert torch.equal(out, bn.roll_pass_plain(net_state))
