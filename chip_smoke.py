@@ -7,10 +7,13 @@ prints no result. Phases, each of which raises on failure:
 1. the device: name and power limit;
 2. the build of ``henjou_torch/csrc/*.cu`` with nvcc, one process per
    source (seconds);
-3. the bitonic sort kernel against its plain version at n = 1024 and
+3. the bitonic sort (one cooperative launch of the keyed network engine,
+   ``csrc/keyed_network.cuh``) against its plain version at n = 1024 and
    65536 with 10 columns (the key, [n, 3] origin and direction rows, two
-   planes and the lane id): keys and planes bit-equal, every (key,
-   payload) pair kept, and the inverse sort restoring the input exactly;
+   planes and the lane id), and at 2^18 with keys over the whole int32
+   range: keys and planes bit-equal, every (key, payload) pair kept, and
+   the inverse sort restoring the input exactly; the sort and the inverse
+   timed by CUDA events and as CUDA graph replays;
 4. the binned intersector kernel against its plain version, closest and
    any hit, on 65536 rays (half camera rays, half incoherent random rays)
    on the sphere gallery and on contest frame 0: t within a relative
@@ -203,12 +206,14 @@ def phase_sort(dev, results):
 
     rng = np.random.default_rng(1)
     worst = 0.0
-    for n in (1024, 65536):
+    for n, signed in ((1024, False), (1 << 18, True), (65536, False)):
         # the renderer's forward sort of a trace with a per-ray tmin: the
         # key, origin and direction rows [n, 3], tmin, tmax and the lane
         # id (10 columns); here the last plane but one holds random bits.
-        # Keys with many ties (a sort key has 24 bits over 65536 rays).
-        key = torch.from_numpy(rng.integers(0, n // 4, n).astype(np.int32)).to(dev)
+        # Keys with many ties (a sort key has 24 bits over 65536 rays), or
+        # over the whole int32 range.
+        lo, hi = (-2**31, 2**31 - 1) if signed else (0, n // 4)
+        key = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
         planes = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
                   for _ in range(2)]
         planes.append(torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev))
@@ -237,7 +242,8 @@ def phase_sort(dev, results):
         for p_in, p_back in zip(planes, inv):
             if not torch.equal(p_in.view(torch.int32), p_back.view(torch.int32)):
                 raise AssertionError(f"sort n={n}: the inverse did not restore the input")
-        log(f"[sort] n={n} 10 columns: keys, pairs and inverse exact")
+        log(f"[sort] n={n} 10 columns{', signed keys' if signed else ''}: keys, pairs and "
+            f"inverse exact")
     # times at the renderer's shape: 65536 rays, the 10 columns above
     # forward, and 4 planes (t, prim, u, v) back
     ms = cuda_ms(lambda: bitonic.bitonic_sort(key, *planes, lane), 20)
@@ -248,13 +254,19 @@ def phase_sort(dev, results):
     back4 = (out[3], out[4], out[3], out[4])
     un_ms = cuda_ms(lambda: bitonic.bitonic_unsort(lid, *back4), 20)
     un_plain = cuda_ms(lambda: bitonic.bitonic_unsort_plain(lid, *back4), 20)
+    graphs = {name: graph_ms(fn) for name, fn in (
+        ("kernel", lambda: bitonic.bitonic_sort(key, *planes, lane)),
+        ("argsort+gather", lambda: argsort_gather(key, *planes, lane)),
+        ("inverse", lambda: bitonic.bitonic_unsort(lid, *back4)))}
     log(f"[sort] n=65536 x{n_cols} columns: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"argsort+gather {library_ms:.4f} ms; "
-        f"inverse x4 planes: kernel {un_ms:.4f} ms, plain {un_plain:.4f} ms")
+        f"inverse x4 planes: kernel {un_ms:.4f} ms, plain {un_plain:.4f} ms (CUDA events)")
+    log("[sort] as CUDA graphs: " + ", ".join(f"{k} {_fmt_ms(v)}" for k, v in graphs.items()))
     bound_ms, bound_by = bound(2 * n_cols * key.numel() * 4)
     results["bitonic"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                              inverse_ms=un_ms, inverse_plain_ms=un_plain)
+                              inverse_ms=un_ms, inverse_plain_ms=un_plain,
+                              graph_ms=graphs["kernel"], inverse_graph_ms=graphs["inverse"])
 
 
 def _test_rays(renderer, accel, cam, dev, rng):
@@ -684,8 +696,14 @@ def _net_forms(bn, st, plain_st):
         yield ("net_walk", f"in place, switch={switch}",
                bn.net_walk(st.clone(), sched, inplace=True, switch=switch),
                bn.net_walk_plain(plain_st, sched))
-    odd = bn.make_schedule(subs[:55], n, st.device)
-    yield ("net_walk", "55 substages", bn.net_walk(st, odd), bn.net_walk_plain(plain_st, odd))
+    for label, lst in (("55 substages", subs[:55]), ("k == j, mixed", bn.MIXED_SUBS)):
+        odd = bn.make_schedule(lst, n, st.device)
+        for inplace in (False, True):
+            for switch in (False, True):
+                yield ("net_walk", f"{label}, inplace={inplace}, switch={switch}",
+                       bn.net_walk(st.clone() if inplace else st, odd, inplace=inplace,
+                                   switch=switch),
+                       bn.net_walk_plain(plain_st, odd))
     for per_plane in (False, True):
         yield ("roll_pass", f"per_plane={per_plane}", bn.roll_pass(st, per_plane=per_plane),
                bn.roll_pass_plain(plain_st))
@@ -734,8 +752,8 @@ def phase_bitonic_net(dev, results):
         st = torch.from_numpy(inp).to(dev)
         prod_ms = cuda_ms(lambda: bitonic.bitonic_sort(st[0], *st[1:]), 20)
         lib_ms = cuda_ms(lambda: argsort_gather(st[0], *st[1:]), 20)
-        log(f"[net] yardsticks, {label} input ({st.shape[0]} planes): bitonic_sort (pair sort + "
-            f"gather) {prod_ms:.4f} ms, argsort+gather {lib_ms:.4f} ms")
+        log(f"[net] yardsticks, {label} input ({st.shape[0]} planes): bitonic_sort (one "
+            f"network launch) {prod_ms:.4f} ms, argsort+gather {lib_ms:.4f} ms")
     # each kernel alone, every form, at 65,536 x 10
     st = torch.from_numpy(make_uniform_input()).to(dev)
     plain_st = st.clone()
@@ -758,7 +776,8 @@ def phase_bitonic_net(dev, results):
                       None, "136 x (32, 16) in shared memory (row C)"),
         "net_walk": (lambda: bn.net_walk(st, sched, switch=True),
                      lambda: bn.net_walk_plain(st, sched),
-                     lambda: argsort_gather(st[0], *st[1:]), "the full sort, switch (136 substages)"),
+                     lambda: argsort_gather(st[0], *st[1:]),
+                     f"the full sort, switch (136 substages in {len(sched.passes)} passes)"),
         "roll_pass": (lambda: bn.roll_pass(st, dst=buf), lambda: bn.roll_pass_plain(st, dst=buf),
                       None, "one stacked roll pass"),
     }
@@ -796,7 +815,8 @@ def phase_bitonic_net(dev, results):
                                                           switch=True),
         "host walk: net_local + net_substage (28 launches)": lambda: host_walk(st, subs, kops),
         "136 per-plane net_substage (row G)": lambda: sort_per_plane(st, subs, kops),
-        "bitonic_sort (pair sort + gather)": lambda: bitonic.bitonic_sort(st[0], *st[1:]),
+        "bitonic_sort (one network launch, whole words)":
+            lambda: bitonic.bitonic_sort(st[0], *st[1:]),
         "argsort + gather (library)": lambda: argsort_gather(st[0], *st[1:]),
     }
     for label, fn in designs.items():

@@ -13,6 +13,14 @@ results bit for bit. The sort is stable: equal keys keep their input order
 (the JAX kernel leaves their order unspecified, so this is a strict
 refinement of its contract).
 
+On the card the sort is one cooperative launch of the keyed network
+engine (``csrc/keyed_network.cuh``), which `bitonic_net.net_walk` shares:
+8-byte (key, source) words run the network and the payload is gathered
+once at the end. The host cuts the substage list into passes
+(`plan_passes`): runs of substages with j below the tile in shared memory,
+and global substages over device memory, each cut into groups of up to
+three whose words stay in one thread's registers (`plan_groups`).
+
 ``LAUNCHES`` counts the wrapper calls that launched the CUDA kernels.
 """
 
@@ -27,12 +35,100 @@ from henjou_torch.csrc import INT, PTR, bind, check
 
 LAUNCHES = 0
 
-_TILE = 1024
+_MIN_N = 1024
+MAX_N = 1 << 30
+# words per shared-memory tile of the network (csrc/keyed_network.cuh
+# NET_TILE) and substages per group, picked on the H100 from CUDA-graph
+# times of tiles 512-8192 and groups of 2 and 3 (PERF.md)
+NETWORK_TILE = 1024
+NETWORK_GROUP = 3
+MAX_SUBS = 1024  # substages per plan (csrc/keyed_network.cuh NET_MAX_SUBS)
+# a substage's code: log2 j | log2 k << 5, GROUP_START on a group's first
+# substage, PASS_START on a pass's, with GLOBAL for a global pass
+# (keyed_network.cuh `Plan`)
+GROUP_START = 1 << 10
+PASS_START = 1 << 11
+GLOBAL = 1 << 12
+MAX_FUSED_COLS = 16  # payload columns gathered inside the network's launch
 
 
 def valid_size(n: int) -> bool:
-    """The kernel takes n a power of two and a multiple of 1024."""
-    return n >= _TILE and (n & (n - 1)) == 0
+    """The kernel takes n a power of two, 1024 <= n <= 2^30."""
+    return _MIN_N <= n <= MAX_N and (n & (n - 1)) == 0
+
+
+def substages(n: int) -> list[tuple[int, int]]:
+    """The bitonic sort's substage list [(k, j), ...] for power-of-two n
+    (the port's copy of henjou_tpu/accel/bitonic.py `_substages`)."""
+    out = []
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j >= 1:
+            out.append((k, j))
+            j >>= 1
+        k <<= 1
+    return out
+
+
+def plan_groups(subs, first: int, count: int, group: int = NETWORK_GROUP):
+    """Substages first .. first + count - 1 of `subs` cut greedily into
+    groups [(first, count), ...] of at most `group` consecutive substages
+    of distinct j: the words of one group's 2^m elements stay in one
+    thread's registers for all of its substages."""
+    groups = []
+    for s in range(first, first + count):
+        if groups and groups[-1][1] < group and all(
+                subs[r][1] != subs[s][1] for r in range(groups[-1][0], s)):
+            groups[-1][1] += 1
+        else:
+            groups.append([s, 1])
+    return [tuple(g) for g in groups]
+
+
+def plan_passes(subs, tile: int, group: int = NETWORK_GROUP):
+    """The passes of the network over the substage list `subs` [(k, j),
+    ...] with `tile`-word tiles: ("local", first, count) for each maximal
+    run of substages with j < tile, and ("global", first, count) for each
+    group (`plan_groups`) of a run of substages with j >= tile. Together
+    they cover every substage once, in order."""
+    passes, s = [], 0
+    while s < len(subs):
+        local = subs[s][1] < tile
+        e = s
+        while e < len(subs) and (subs[e][1] < tile) == local:
+            e += 1
+        if local:
+            passes.append(("local", s, e - s))
+        else:
+            passes += [("global", f, c) for f, c in plan_groups(subs, s, e - s, group)]
+        s = e
+    return tuple(passes)
+
+
+def plan_codes(subs, passes, group: int = NETWORK_GROUP) -> list[int]:
+    """The plan as the kernel takes it: one code per substage (see
+    GROUP_START)."""
+    codes = [(j.bit_length() - 1) | ((k.bit_length() - 1) << 5) for k, j in subs]
+    for kind, first, count in passes:
+        codes[first] |= PASS_START | (GLOBAL if kind == "global" else 0)
+        for f, _ in plan_groups(subs, first, count, group):
+            codes[f] |= GROUP_START
+    return codes
+
+
+def c_plan(subs):
+    """(ctypes array of the plan's codes, count) for the kernel, with the
+    engine's tile and group size."""
+    if len(subs) > MAX_SUBS:
+        raise ValueError(f"the network takes at most {MAX_SUBS} substages, got {len(subs)}")
+    codes = plan_codes(subs, plan_passes(subs, NETWORK_TILE))
+    return (ctypes.c_int64 * max(1, len(codes)))(*codes), len(codes)
+
+
+@functools.cache
+def _sort_plan(n: int):
+    return c_plan(substages(n))
 
 
 def _check_inputs(key: torch.Tensor, planes) -> int:
@@ -66,10 +162,9 @@ def _columns(planes):
 
 @functools.cache
 def _fns():
-    sort = bind("henjou_bitonic_sort", [PTR, PTR, PTR, INT, PTR])
-    gather = bind("henjou_gather_columns", [PTR, INT, PTR, INT, PTR])
+    sort = bind("henjou_bitonic_sort", [PTR, PTR, PTR, PTR, PTR, INT, INT, PTR, INT, PTR])
     scatter = bind("henjou_scatter_columns", [PTR, INT, PTR, INT, PTR])
-    return sort, gather, scatter
+    return sort, scatter
 
 
 def bitonic_sort_plain(key: torch.Tensor, *planes: torch.Tensor):
@@ -94,8 +189,9 @@ def bitonic_unsort_plain(lid: torch.Tensor, *planes: torch.Tensor):
 def bitonic_sort(key: torch.Tensor, *planes: torch.Tensor):
     """Sort i32 `key` ascending (stable), carrying `planes` (any 4-byte
     dtype, [n] or [n, c]) through the same permutation. `key` is [n]; on CUDA
-    n must be a power of two and a multiple of 1024. Keys must not have
-    the sign bit set. Returns (sorted_key, *sorted_planes)."""
+    n must be a power of two, 1024 <= n <= 2^30, and the sort is one launch
+    of the network (one more launch gathers columns beyond 16). Returns
+    (sorted_key, *sorted_planes)."""
     global LAUNCHES
     n = _check_inputs(key, planes)
     if key.device.type == "cpu":
@@ -103,18 +199,18 @@ def bitonic_sort(key: torch.Tensor, *planes: torch.Tensor):
     if key.device.type != "cuda":
         raise ValueError(f"unsupported device {key.device}")
     if not valid_size(n):
-        raise ValueError(f"bitonic_sort needs n = 2^m >= 1024, got {n}")
-    sort_fn, gather_fn, _ = _fns()
+        raise ValueError(f"bitonic_sort needs n = 2^m in [{_MIN_N}, {MAX_N}], got {n}")
+    codes, count = _sort_plan(n)
+    sort_fn, _ = _fns()
     key = key.contiguous()
     stream = torch.cuda.current_stream(key.device).cuda_stream
     key_out = torch.empty_like(key)
-    idx = torch.empty_like(key)
-    check(sort_fn(key.data_ptr(), key_out.data_ptr(), idx.data_ptr(), n,
-                  stream), "henjou_bitonic_sort")
+    words = torch.empty(n, dtype=torch.int64, device=key.device)
     outs, desc, n_cols = _columns(planes)
-    if n_cols:
-        check(gather_fn(desc, n_cols, idx.data_ptr(), n, stream),
-              "henjou_gather_columns")
+    idx = torch.empty_like(key) if n_cols > MAX_FUSED_COLS else None
+    check(sort_fn(key.data_ptr(), key_out.data_ptr(), words.data_ptr(),
+                  None if idx is None else idx.data_ptr(), desc, n_cols, n, codes, count,
+                  stream), "henjou_bitonic_sort")
     LAUNCHES += 1
     return (key_out,) + outs
 
@@ -131,7 +227,7 @@ def bitonic_unsort(lid: torch.Tensor, *planes: torch.Tensor):
         raise ValueError(f"unsupported device {lid.device}")
     if not planes:
         return ()
-    _, _, scatter_fn = _fns()
+    _, scatter_fn = _fns()
     lid = lid.contiguous()
     stream = torch.cuda.current_stream(lid.device).cuda_stream
     outs, desc, n_cols = _columns(planes)

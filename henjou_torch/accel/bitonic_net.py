@@ -26,8 +26,10 @@ anything else, including a launch that CUDA refuses:
   or behind a chain of guards;
 - `net_local`: a list of substages with j < TILE, each TILE-element tile
   in shared memory for the whole list;
-- `net_walk`: a `Schedule` walked in one cooperative launch, in place or
-  double-buffered;
+- `net_walk`: a `Schedule` in one cooperative launch of the keyed network
+  engine that `bitonic.bitonic_sort` shares (``csrc/keyed_network.cuh``):
+  (key, source) words run the network in passes, the planes are gathered
+  once at the end; in place or into a new state;
 - `roll_pass`: roll(x, 16) + roll(x, 112) along each 128-element row.
 
 ``LAUNCHES[name]`` counts each kernel's launches.
@@ -42,6 +44,13 @@ import types
 
 import torch
 
+from henjou_torch.accel.bitonic import (
+    MAX_FUSED_COLS,
+    NETWORK_TILE,
+    c_plan,
+    plan_passes,
+    substages,
+)
 from henjou_torch.csrc import INT, PTR, bind, check
 
 TILE = 1024  # elements per net_local tile
@@ -53,22 +62,12 @@ GUARDS = (4, 16)  # guard chain lengths of net_substage
 STATIC_PAIRS = ((32, 16), (1024, 512))  # (k, j) compiled as constants
 MAX_STATIC_J = 1 << 16
 MODES = ("dynamic", "static_j", "static")
+# a schedule for n = 65,536 with k == j substages (both elements of a pair
+# may take the same key), repeated and out-of-order j, and global substages
+MIXED_SUBS = ((1 << 16, 1 << 15), (8192, 8192), (2048, 2048), (16, 16), (1 << 16, 4096),
+              (2, 1), (8192, 4096), (8192, 4096), (64, 8192), (1 << 16, 1 << 15), (32, 16))
 
 LAUNCHES = dict.fromkeys(("net_substage", "net_local", "net_walk", "roll_pass"), 0)
-
-
-def substages(n: int) -> list[tuple[int, int]]:
-    """The bitonic sort's substage list [(k, j), ...] for power-of-two n
-    (the port's copy of henjou_tpu/accel/bitonic.py `_substages`)."""
-    out = []
-    k = 2
-    while k <= n:
-        j = k >> 1
-        while j >= 1:
-            out.append((k, j))
-            j >>= 1
-        k <<= 1
-    return out
 
 
 def _pow2(x: int) -> bool:
@@ -82,21 +81,28 @@ def _check_pair(k: int, j: int, n: int) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Schedule:
-    """A substage list and its device-resident [2, L] int32 table (row 0
-    j, row 1 k), checked once against n when it is made."""
+    """A substage list for n elements on a device, checked against n once
+    when it is made, and its plan for the kernel: the passes
+    (`bitonic.plan_passes`) for the network's tile and their codes."""
 
     subs: tuple[tuple[int, int], ...]
-    jk: torch.Tensor
     n: int
+    device: torch.device
+    passes: tuple
+    codes: object  # ctypes array of the plan's codes
 
 
 def make_schedule(subs, n: int, device) -> Schedule:
+    """The Schedule of `subs` [(k, j), ...] for n elements on `device`."""
     subs = tuple((int(k), int(j)) for k, j in subs)
     for k, j in subs:
         _check_pair(k, j, n)
-    rows = [[j for _, j in subs], [k for k, _ in subs]]
-    jk = torch.tensor(rows, dtype=torch.int32).reshape(2, len(subs)).to(device)
-    return Schedule(subs=subs, jk=jk.contiguous(), n=n)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    codes, _ = c_plan(subs)
+    return Schedule(subs=subs, n=n, device=device, passes=plan_passes(subs, NETWORK_TILE),
+                    codes=codes)
 
 
 def to_state(key: torch.Tensor, *planes: torch.Tensor) -> torch.Tensor:
@@ -259,7 +265,7 @@ def net_local(src, subs, *, dst=None):
 
 def _check_walk(state, sched, inplace):
     _, n = _check_state(state)
-    if not isinstance(sched, Schedule) or sched.n != n or sched.jk.device != state.device:
+    if not isinstance(sched, Schedule) or sched.n != n or sched.device != state.device:
         raise ValueError(f"the schedule must be a Schedule for n={n} on {state.device}")
     return state if inplace else torch.empty_like(state)
 
@@ -275,25 +281,31 @@ def net_walk_plain(state, sched, *, inplace=False, switch=False):
 
 @functools.cache
 def _walk_fn():
-    return bind("henjou_net_walk", [PTR, PTR, PTR, INT, INT, PTR, INT, INT, INT, PTR])
+    return bind("henjou_net_walk",
+                [PTR, PTR, PTR, PTR, PTR, INT, INT, PTR, INT, INT, INT, PTR])
 
 
 def net_walk(state, sched, *, inplace=False, switch=False):
     """Every substage of the Schedule `sched` over the state, in one
-    cooperative launch with a grid-wide barrier between substages.
-    `inplace`: walks `state` itself and returns it; otherwise the result
-    goes to a new tensor through a scratch buffer. `switch`:
-    each j runs code compiled for it, picked by a switch on log2 j;
-    otherwise j is used as read. Raises when CUDA refuses the
-    cooperative launch."""
+    cooperative launch: (key, source) words run the schedule's passes with
+    a grid-wide barrier after each, then the planes are gathered through
+    the sources (above 17 planes the rest take further launches).
+    `inplace`: the result goes back into `state`, which is returned;
+    otherwise to a new tensor. `switch`: the first j of each global pass
+    runs code compiled for it, picked by a switch on log2 j; otherwise j
+    is used as read. Raises when CUDA refuses the cooperative launch."""
     if _device(state) == "cpu":
         return net_walk_plain(state, sched, inplace=inplace)
     dst = _check_walk(state, sched, inplace)
     p, n = state.shape
-    buf = dst if inplace else torch.empty_like(state)
-    check(_walk_fn()(state.data_ptr(), dst.data_ptr(), buf.data_ptr(), p, n,
-                     sched.jk.data_ptr(), len(sched.subs), int(inplace), int(switch),
-                     _stream(state)), "henjou_net_walk")
+    buf = torch.empty_like(state) if inplace else dst
+    words = torch.empty(n, dtype=torch.int64, device=state.device)
+    idx = torch.empty(n, dtype=torch.int32, device=state.device) if p - 1 > MAX_FUSED_COLS \
+        else None
+    check(_walk_fn()(state.data_ptr(), dst.data_ptr(), buf.data_ptr(), words.data_ptr(),
+                     None if idx is None else idx.data_ptr(), p, n, sched.codes,
+                     len(sched.subs), int(inplace), int(switch), _stream(state)),
+          "henjou_net_walk")
     LAUNCHES["net_walk"] += 1
     return dst
 

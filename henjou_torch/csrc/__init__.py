@@ -11,7 +11,7 @@ plain C interface, which is loaded with ``ctypes``:
 ``--fmad=false`` keeps the intersectors' t, u and v equal to their plain
 PyTorch versions to the ulp (the sort is integer-only, so the flag does
 not touch it). The library lands in ``build/henjou_torch/`` at the
-repository root, named by a hash of the sources, the shared header and
+repository root, named by a hash of the sources, the shared headers and
 the flags, so an edit to any of them rebuilds it and an unchanged tree
 reuses it.
 
@@ -55,7 +55,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and common.cuh
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and the headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(COMPILE_FLAGS).encode())

@@ -5,26 +5,20 @@
 // bitonic network over [planes, n/128, 128] VMEM tiles with lane/sublane
 // rolls, carrying every payload plane through each exchange.
 //
-// Here the network sorts (key, index) pairs only, and one gather kernel
-// then moves every payload column through the final permutation: on the
-// card a gather is a cheap coalesced-read pass, so the planes need not ride
-// the network. Pairs compare on (key, index), so equal keys keep their
-// input order: the result is the stable ascending sort, which is what the
-// plain PyTorch version (torch.argsort(stable=True) plus indexing)
-// computes, bit for bit.
-//
-// Schedule for n = 2^m >= 1024:
-//   - one block kernel sorts every 1024-element tile in shared memory
-//     (all substages with k <= 1024);
-//   - for each k = 2048 .. n: one global compare-exchange kernel per
-//     substage j >= 1024, then one block kernel that runs the remaining
-//     j = 512 .. 1 substages of that k in shared memory.
-// At the renderer's 4096..65536 rays that is 3..26 launches plus the
-// gather. The sort is bound by memory traffic and launch count, not by
-// arithmetic: each global substage reads and writes n (key, index) pairs,
-// and at these sizes the launches themselves are a large share of the
-// time. The shared-memory block kernels fold 10 substages per k into one
-// pass over device memory.
+// Here the sort is one cooperative launch of the keyed network engine
+// (keyed_network.cuh) over 8-byte (key, source) words compared whole:
+// the words are distinct, so equal keys keep their input order and the
+// result is the stable ascending sort that the plain PyTorch version
+// (torch.argsort(stable=True) plus indexing) computes, bit for bit. The
+// network ends by gathering up to 16 payload columns through the sources,
+// so the planes move once and never ride the network; more columns take
+// one more gather launch. At the renderer's 65,536 rays and the engine's
+// 1024-word tile the launch holds 16 passes: 7 in shared memory (115
+// substages in 43 register groups) and 9 global ones (21 substages), with
+// a grid barrier after each. Bytes do not bound it (1 MB of words per
+// global pass, each column moved once): the latency of the groups and
+// barriers does. The schedule of a sort has k > j throughout, so each pair
+// swaps as one (keyed_network.cuh `settle_pair`).
 //
 // The inverse sort (restoring lane order after a trace) needs no network:
 // the lane ids are a permutation of 0..n-1, so one scatter kernel writes
@@ -33,95 +27,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "keyed_network.cuh"
+
 namespace {
 
-constexpr int TILE = 1024;  // elements per shared-memory block
-
-__device__ __forceinline__ bool pair_gt(int32_t ka, int32_t ia, int32_t kb,
-                                        int32_t ib) {
-  return ka > kb || (ka == kb && ia > ib);
-}
-
-// Runs substages (k, j) for k = k_first .. k_last (powers of two) and
-// j = min(k/2, TILE/2) .. 1 on each TILE-element block in shared memory.
-// With init != 0 the index plane starts as the global element index.
-// The inputs may alias the outputs (each block reads its whole tile into
-// shared memory before it writes any of it back), so none is __restrict__.
-__global__ void bitonic_local(const int32_t* key_in, const int32_t* idx_in,
-                              int32_t* key_out, int32_t* idx_out,
-                              long long k_first, long long k_last, int init) {
-  __shared__ int32_t sk[TILE];
-  __shared__ int32_t si[TILE];
-  const long long base = (long long)blockIdx.x * TILE;
-  for (int t = threadIdx.x; t < TILE; t += blockDim.x) {
-    sk[t] = key_in[base + t];
-    si[t] = init ? (int32_t)(base + t) : idx_in[base + t];
-  }
-  __syncthreads();
-  const int t = threadIdx.x;  // pair index, 0 .. TILE/2 - 1
-  for (long long k = k_first; k <= k_last; k <<= 1) {
-    const int j_first = (int)(k >> 1) < TILE / 2 ? (int)(k >> 1) : TILE / 2;
-    for (int j = j_first; j >= 1; j >>= 1) {
-      const int lo = 2 * t - (t & (j - 1));
-      const int hi = lo + j;
-      const bool asc = ((base + lo) & k) == 0;
-      const int32_t ka = sk[lo], ia = si[lo], kb = sk[hi], ib = si[hi];
-      const bool swap = asc ? pair_gt(ka, ia, kb, ib) : pair_gt(kb, ib, ka, ia);
-      if (swap) {
-        sk[lo] = kb; si[lo] = ib;
-        sk[hi] = ka; si[hi] = ia;
-      }
-      __syncthreads();
-    }
-  }
-  for (int u = threadIdx.x; u < TILE; u += blockDim.x) {
-    key_out[base + u] = sk[u];
-    idx_out[base + u] = si[u];
-  }
-}
-
-// One substage (k, j) with j >= TILE over the whole array.
-__global__ void bitonic_global(int32_t* key, int32_t* idx, long long n,
-                               long long j, long long k) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n / 2) return;
-  const long long lo = 2 * t - (t & (j - 1));
-  const long long hi = lo + j;
-  const bool asc = (lo & k) == 0;
-  const int32_t ka = key[lo], ia = idx[lo], kb = key[hi], ib = idx[hi];
-  const bool swap = asc ? pair_gt(ka, ia, kb, ib) : pair_gt(kb, ib, ka, ia);
-  if (swap) {
-    key[lo] = kb; idx[lo] = ib;
-    key[hi] = ka; idx[hi] = ia;
-  }
-}
-
-// Up to MAX_COLS payload columns per launch, passed by value. Column c
-// is a 4-byte element every stride[c] elements from src[c] / dst[c], so a
-// [n, 3] tensor travels as three strided columns and is neither split nor
-// restacked around the kernel.
-constexpr int MAX_COLS = 16;
-
-struct Columns {
-  const int32_t* src[MAX_COLS];
-  int32_t* dst[MAX_COLS];
-  long long stride[MAX_COLS];
-  int count;
-};
-
-// dst[c][i] = src[c][idx[i]] for every column c.
-__global__ void gather_columns(Columns cols, const int32_t* __restrict__ idx,
-                               long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long s = idx[i];
-  for (int c = 0; c < cols.count; ++c)
-    cols.dst[c][i * cols.stride[c]] = cols.src[c][s * cols.stride[c]];
-}
-
 // dst[c][lid[i]] = src[c][i]; lid must be a permutation of 0..n-1.
-__global__ void scatter_columns(Columns cols, const int32_t* __restrict__ lid,
-                                long long n) {
+__global__ void scatter_columns(henjou::Columns cols, const int32_t* __restrict__ lid, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long d = lid[i];
@@ -129,61 +40,34 @@ __global__ void scatter_columns(Columns cols, const int32_t* __restrict__ lid,
     cols.dst[c][d * cols.stride[c]] = cols.src[c][i * cols.stride[c]];
 }
 
-// Launches `kernel` over n elements for the columns described on the host
-// by desc[3 * c .. 3 * c + 2] = (src pointer, dst pointer, stride), in
-// launches of at most MAX_COLS columns.
-template <typename Kernel>
-int launch_columns(Kernel kernel, const long long* desc, long long n_cols,
-                   const int32_t* perm, long long n, cudaStream_t s) {
-  for (long long c0 = 0; c0 < n_cols; c0 += MAX_COLS) {
-    Columns cols;
-    cols.count = (int)(n_cols - c0 < MAX_COLS ? n_cols - c0 : MAX_COLS);
-    for (int c = 0; c < cols.count; ++c) {
-      const long long* e = desc + 3 * (c0 + c);
-      cols.src[c] = reinterpret_cast<const int32_t*>(e[0]);
-      cols.dst[c] = reinterpret_cast<int32_t*>(e[1]);
-      cols.stride[c] = e[2];
-    }
-    kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(cols, perm, n);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Stable ascending sort of key_in[n] (n a power of two, >= 1024):
-// key_out gets the sorted keys, idx_out the source index of each.
-int henjou_bitonic_sort(const int32_t* key_in, int32_t* key_out,
-                        int32_t* idx_out, long long n, void* stream) {
+// Stable ascending sort of key_in[n] (n = 2^m, 1024 <= n <= 2^30) into
+// key_out, carrying the payload columns of desc (n_cols triples of src
+// pointer, dst pointer and stride) through the same permutation. codes:
+// the substage list's plan (keyed_network.cuh `Plan`). words: n 8-byte words of scratch; idx: n int32 of scratch, needed
+// only for more than 16 columns. Returns a cudaError_t.
+int henjou_bitonic_sort(const int32_t* key_in, int32_t* key_out, henjou::word_t* words,
+                        int32_t* idx, const long long* desc, long long n_cols, long long n,
+                        const long long* codes, long long count, void* stream) {
+  using namespace henjou;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)(n / TILE);
-  const long long k_first_last = n < TILE ? n : TILE;
-  bitonic_local<<<blocks, TILE / 2, 0, s>>>(key_in, nullptr, key_out, idx_out,
-                                            2, k_first_last, 1);
-  const unsigned gblocks = (unsigned)((n / 2 + 255) / 256);
-  for (long long k = 2 * TILE; k <= n; k <<= 1) {
-    for (long long j = k >> 1; j >= TILE; j >>= 1) {
-      bitonic_global<<<gblocks, 256, 0, s>>>(key_out, idx_out, n, j, k);
-    }
-    bitonic_local<<<blocks, TILE / 2, 0, s>>>(key_out, idx_out, key_out,
-                                              idx_out, k, k, 0);
-  }
-  return (int)cudaGetLastError();
+  if (n_cols > MAX_COLS && idx == nullptr) return (int)cudaErrorInvalidValue;
+  Emit e{};
+  e.key = key_out;
+  e.idx = n_cols > MAX_COLS ? idx : nullptr;
+  e.cols = columns_of(desc, 0, n_cols < MAX_COLS ? n_cols : MAX_COLS);
+  const cudaError_t err = launch_network<true, false>(key_in, words, n, codes, count, e, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_columns(gather_columns, desc, MAX_COLS, n_cols, idx, n, s);
 }
 
-// desc: host array of (src, dst, stride) per column; see launch_columns.
-int henjou_gather_columns(const long long* desc, long long n_cols,
-                          const int32_t* idx, long long n, void* stream) {
-  return launch_columns(gather_columns, desc, n_cols, idx, n,
-                        static_cast<cudaStream_t>(stream));
-}
-
-int henjou_scatter_columns(const long long* desc, long long n_cols,
-                           const int32_t* lid, long long n, void* stream) {
-  return launch_columns(scatter_columns, desc, n_cols, lid, n,
-                        static_cast<cudaStream_t>(stream));
+int henjou_scatter_columns(const long long* desc, long long n_cols, const int32_t* lid,
+                           long long n, void* stream) {
+  return (int)henjou::launch_columns(scatter_columns, desc, 0, n_cols, lid, n,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

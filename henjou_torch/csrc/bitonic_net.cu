@@ -34,11 +34,17 @@
 //                 exp_bitonic4.py's guard_chain does.
 //   net_local     a list of substages with j < TILE on each TILE-element
 //                 tile, every plane in shared memory (P * 4 KB).
-//   net_walk      one cooperative launch that walks a device-resident (j, k)
-//                 table with a grid-wide barrier between substages, in place
-//                 or double-buffered, with j either dispatched by a switch
-//                 to static-j code or used as read: the counterpart of one
-//                 pallas_call whose fori_loop walks an SMEM schedule.
+//   net_walk      a whole substage list in one cooperative launch of the
+//                 keyed network engine (keyed_network.cuh): 8-byte (key,
+//                 source) words, key halves compared by the rule above,
+//                 runs of j below the tile in shared memory and up to
+//                 three global substages per pass, a grid barrier after
+//                 each pass,
+//                 the planes gathered once through the sources; in place
+//                 or into a new state, with each global pass's first j
+//                 either dispatched by a switch to static-j code or used
+//                 as read: the counterpart of one pallas_call whose
+//                 fori_loop walks an SMEM schedule.
 //   roll_pass     out = roll(x, 16) + roll(x, 112) along each 128-element
 //                 row of every plane, in unsigned arithmetic (wraps).
 //
@@ -46,19 +52,17 @@
 // and moves every plane in and out once: 2 * P * n * 4 bytes, 5.2 MB at
 // 65,536 x 10, 1.56 us at 3.35 TB/s. That fits the 50 MB L2 cache, so in a
 // chain of passes each one is bound by L2 bandwidth and, at this size, by
-// its launch. A full sort is 136 substages at n = 65,536. The designs
-// answer that in three ways, which the experiments time against each
-// other: net_local folds a run of substages with j < TILE into one pass
-// over memory (the state stays in shared memory); net_walk replaces the
-// launches by grid barriers in one launch; and the host-walked sorts of
-// the tools combine net_local with net_substage for j >= TILE (28 launches
-// at n = 65,536 instead of 136).
+// its launch. A full sort is 136 substages at n = 65,536. net_local folds
+// a run of substages with j < TILE into one pass over memory; the
+// host-walked sorts of the tools combine it with net_substage for
+// j >= TILE (28 launches at n = 65,536 instead of 136). net_walk leaves
+// the planes out of the network altogether and pays one launch and 16 grid
+// barriers for the whole sort; its note is in keyed_network.cuh.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "keyed_network.cuh"
 
 namespace {
 
@@ -90,29 +94,22 @@ __device__ __forceinline__ long long pair_lo(long long t, long long j) {
   return 2 * t - (t & (j - 1));
 }
 
-// A load; with L2_ONLY it bypasses the SM's L1 (`ld.global.cg`), as the
-// cooperative walk reads what other blocks wrote before the last barrier.
-template <bool L2_ONLY>
-__device__ __forceinline__ int32_t load(const int32_t* p) {
-  return L2_ONLY ? __ldcg(p) : *p;
-}
-
 // Pair t of substage `jk`, every plane, src -> dst. dst may be src: the
 // pair's elements are read before they are written, and no other pair
 // touches them.
-template <bool L2_ONLY = false, class S>
+template <class S>
 __device__ __forceinline__ void exchange(const int32_t* src, int32_t* dst,
                                          long long n, int planes, long long t,
                                          S jk) {
   const long long j = jk.j(), k = jk.k();
   const long long lo = pair_lo(t, j), hi = lo + j;
-  const int32_t a = load<L2_ONLY>(src + lo), b = load<L2_ONLY>(src + hi);
+  const int32_t a = src[lo], b = src[hi];
   const bool s_lo = takes(lo, j, k, a, b);
   const bool s_hi = takes(hi, j, k, b, a);
   for (int p = 0; p < planes; ++p) {
     const long long off = p * n;
-    const int32_t x = load<L2_ONLY>(src + off + lo);
-    const int32_t y = load<L2_ONLY>(src + off + hi);
+    const int32_t x = src[off + lo];
+    const int32_t y = src[off + hi];
     dst[off + lo] = s_lo ? y : x;
     dst[off + hi] = s_hi ? x : y;
   }
@@ -191,57 +188,9 @@ __global__ void local_list(const int32_t* src, int32_t* dst, long long n,
       dst[p * n + base + u] = sm[p * TILE + u];
 }
 
-// Every pair of one substage, grid-stride.
-template <long long J>
-__device__ __forceinline__ void walk_pairs(const int32_t* src, int32_t* dst,
-                                           long long n, int planes,
-                                           long long first, long long stride,
-                                           long long j, long long k) {
-  for (long long t = first; t < n / 2; t += stride)
-    exchange<true>(src, dst, n, planes, t, JK<J, 0>{j, k});
-}
-
 #define HJ_LOG2_CASES(X)                                                    \
   X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
       X(14) X(15) X(16)
-
-// jk: [2][count] (row 0 j, row 1 k). In place, src = dst = out throughout;
-// double-buffered, substage 0 reads `in` and the first destination is
-// chosen so that the last substage writes `out`.
-template <bool INPLACE, bool SWITCH>
-__global__ void walk(const int32_t* in, int32_t* out, int32_t* buf,
-                     long long n, int planes, const int32_t* __restrict__ jk,
-                     int count) {
-  cg::grid_group grid = cg::this_grid();
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const int32_t* src = INPLACE ? out : in;
-  int32_t* dst = (INPLACE || count % 2 == 1) ? out : buf;
-  for (int s = 0; s < count; ++s) {
-    const long long j = jk[s], k = jk[count + s];
-    if (SWITCH) {
-      switch (__ffsll(j) - 1) {
-#define HJ_WALK_CASE(L)                                                  \
-  case L:                                                                \
-    walk_pairs<(1LL << L)>(src, dst, n, planes, first, stride, j, k);    \
-    break;
-        HJ_LOG2_CASES(HJ_WALK_CASE)
-#undef HJ_WALK_CASE
-        default:
-          walk_pairs<0>(src, dst, n, planes, first, stride, j, k);
-      }
-    } else {
-      walk_pairs<0>(src, dst, n, planes, first, stride, j, k);
-    }
-    grid.sync();
-    if (!INPLACE) {
-      src = dst;
-      dst = dst == out ? buf : out;
-    }
-  }
-  if (!INPLACE && count == 0)
-    for (long long i = first; i < planes * n; i += stride) out[i] = in[i];
-}
 
 __device__ __forceinline__ int32_t roll_sum(const int32_t* row, int l) {
   return (int32_t)((uint32_t)row[(l - ROLL_A) & (ROW - 1)] +
@@ -282,29 +231,6 @@ typedef void (*StackedFn)(const int32_t*, int32_t*, long long, int, long long,
                           long long);
 typedef void (*PlaneFn)(const int32_t*, int32_t*, long long, long long,
                         long long);
-
-template <bool INPLACE, bool SWITCH>
-int launch_walk(const int32_t* in, int32_t* out, int32_t* buf, long long n,
-                int planes, const int32_t* jk, int count, cudaStream_t s) {
-  auto kernel = walk<INPLACE, SWITCH>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  // a cooperative grid may hold no more blocks than can be resident at once
-  const long long want = blocks_for(n / 2, THREADS);
-  const long long most = (long long)per_sm * sms;
-  const unsigned grid = (unsigned)(want < most ? want : most);
-  void* args[] = {(void*)&in, (void*)&out,    (void*)&buf,  (void*)&n,
-                  (void*)&planes, (void*)&jk, (void*)&count};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS),
-                                  args, 0, s);
-  if (e != cudaSuccess) cudaGetLastError();  // a refused launch is returned, not left pending
-  return (int)e;
-}
 
 }  // namespace
 
@@ -386,21 +312,53 @@ int henjou_net_local(const int32_t* src, int32_t* dst, long long planes,
   return (int)cudaGetLastError();
 }
 
-// The schedule jk ([2][count] int32 on the device: j, then k) in one
-// cooperative launch. inplace: in is ignored and out is walked in place;
-// else in -> out through the scratch buf. use_switch: j dispatched to
-// static-j code by a switch on log2 j.
-int henjou_net_walk(const int32_t* in, int32_t* out, int32_t* buf,
-                    long long planes, long long n, const int32_t* jk,
-                    long long count, long long inplace, long long use_switch,
-                    void* stream) {
+// The substage list `codes` (the plan of accel/bitonic.py `plan_codes`)
+// over the [planes][n] state `in`, in one cooperative launch of the keyed
+// network engine, the key halves of the words compared. inplace: in and out are the same state, the planes are
+// gathered into the scratch state buf and copied back after a barrier;
+// else into out (buf unused). words: n 8-byte words of scratch; idx: n
+// int32 of scratch, needed only above 17 planes, whose extra planes take
+// gather launches (and in place a copy) after the network. use_switch:
+// each global pass's first j dispatched to static-j code by a switch on
+// log2 j.
+int henjou_net_walk(const int32_t* in, int32_t* out, int32_t* buf, henjou::word_t* words,
+                    int32_t* idx, long long planes, long long n, const long long* codes,
+                    long long count, long long inplace, long long use_switch, void* stream) {
+  using namespace henjou;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int p = (int)planes, c = (int)count;
-  if (inplace)
-    return use_switch ? launch_walk<true, true>(in, out, buf, n, p, jk, c, s)
-                      : launch_walk<true, false>(in, out, buf, n, p, jk, c, s);
-  return use_switch ? launch_walk<false, true>(in, out, buf, n, p, jk, c, s)
-                    : launch_walk<false, false>(in, out, buf, n, p, jk, c, s);
+  const long long cols = planes - 1;
+  if (planes < 1 || (cols > MAX_COLS && idx == nullptr)) return (int)cudaErrorInvalidValue;
+  int32_t* state = const_cast<int32_t*>(in);
+  int32_t* dst = inplace ? buf : out;
+  Emit e{};
+  e.key = dst;
+  e.idx = cols > MAX_COLS ? idx : nullptr;
+  e.back = inplace ? state : nullptr;
+  e.cols.count = (int)(cols < MAX_COLS ? cols : MAX_COLS);
+  for (int c = 0; c < e.cols.count; ++c) {
+    e.cols.src[c] = state + (c + 1) * n;
+    e.cols.dst[c] = dst + (c + 1) * n;
+    e.cols.stride[c] = 1;
+  }
+  cudaError_t err = use_switch
+      ? launch_network<false, true>(in, words, n, codes, count, e, s)
+      : launch_network<false, false>(in, words, n, codes, count, e, s);
+  for (long long c0 = MAX_COLS; err == cudaSuccess && c0 < cols; c0 += MAX_COLS) {
+    Columns more;
+    more.count = (int)(cols - c0 < MAX_COLS ? cols - c0 : MAX_COLS);
+    for (int c = 0; c < more.count; ++c) {
+      more.src[c] = state + (c0 + c + 1) * n;
+      more.dst[c] = dst + (c0 + c + 1) * n;
+      more.stride[c] = 1;
+    }
+    gather_columns<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(more, idx, n);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess && inplace && cols > MAX_COLS)
+    err = cudaMemcpyAsync(state + (MAX_COLS + 1) * n, buf + (MAX_COLS + 1) * n,
+                          (size_t)(cols - MAX_COLS) * n * sizeof(int32_t),
+                          cudaMemcpyDeviceToDevice, s);
+  return (int)err;
 }
 
 // dst = roll(src, 16) + roll(src, 112) along each 128-element row of every

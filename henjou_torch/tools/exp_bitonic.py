@@ -3,9 +3,11 @@
 Port of tools/exp_bitonic.py. Four rows, the JAX script's:
 
 - ``switch 64k 10-plane`` / ``5-plane``: the whole network in one
-  cooperative `net_walk` over a device-resident schedule, each j run by
-  code compiled for it and picked by a switch on log2 j (the JAX kernel's
-  fori_loop over a 17-way ``lax.switch``), double-buffered;
+  cooperative `net_walk` (the keyed network engine: shared-memory runs and
+  fused global passes over (key, source) words, the planes gathered once),
+  the first j of each global pass run by code compiled for it and picked
+  by a switch on log2 j (the JAX kernel's fori_loop over a 17-way
+  ``lax.switch``), into a new state;
 - ``unroll 64k 10-plane`` / ``5-plane``: the schedule walked on the host
   (the JAX kernel's full static unroll): one `net_local` for every
   substage with k <= TILE, then for each k a `net_substage` per j >= TILE

@@ -4,8 +4,9 @@ Port of tools/exp_bitonic3.py, whose fully unrolled in-place kernels
 sort P = 10 int32 planes of S x 128 = 65,536 elements (keys below 2^24
 from numpy's ``default_rng(0)``, planes below 2^30 from ``default_rng(1)``)
 in VMEM. Here each row is one cooperative `net_walk` in place over the
-device-resident schedule (136 substages), each j run by code compiled for
-it (the switch form, the nearest the card has to a static unroll):
+schedule (136 substages in 16 passes of the keyed network engine), the
+first j of each global pass run by code compiled for it (the switch form,
+the nearest the card has to a static unroll):
 
 - ``G1 inplace full unroll``: copies the input, then sorts the copy in
   place (the JAX kernel's out <- stack, then in-place substages);

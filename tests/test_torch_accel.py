@@ -69,6 +69,57 @@ def test_bitonic_plain_contract(n):
     assert tbit.LAUNCHES == 0  # CPU tensors never reach the CUDA kernel
 
 
+@pytest.mark.parametrize("tile", [512, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("n", [1024, 2048, 4096, 65536, 1 << 18])
+def test_plan_passes_cover_the_schedule(n, tile):
+    """The network's passes cover every substage of the sort once, in
+    order; a local pass is a maximal run of j < tile, a global one at most
+    three substages of distinct j >= tile that the next pass could not
+    join; the groups of a local pass follow the same rule."""
+    subs = tbit.substages(n)
+    passes = tbit.plan_passes(subs, tile)
+    assert [s for _, first, count in passes for s in range(first, first + count)] == \
+        list(range(len(subs)))
+    for (kind, first, count), nxt in zip(passes, passes[1:] + (None,)):
+        js = [j for _, j in subs[first:first + count]]
+        if kind == "local":
+            assert max(js) < tile and (nxt is None or nxt[0] == "global")
+            groups = tbit.plan_groups(subs, first, count)
+            assert [s for f, c in groups for s in range(f, f + c)] == \
+                list(range(first, first + count))
+            for (f, c), g_next in zip(groups, groups[1:]):
+                gj = [j for _, j in subs[f:f + c]]
+                assert len(set(gj)) == c <= 3 and (c == 3 or subs[g_next[0]][1] in gj)
+        else:
+            assert min(js) >= tile and count <= 3 and len(set(js)) == count
+            if nxt is not None and nxt[0] == "global" and count < 3:
+                assert subs[nxt[1]][1] in js
+    if n <= tile:
+        assert passes == (("local", 0, len(subs)),)
+    if (n, tile) == (65536, 2048):  # 121 substages in 6 local passes, 15 in 7 global
+        assert [(kind, count) for kind, _, count in passes if kind == "local"] == \
+            [("local", 66)] + [("local", 11)] * 5
+        assert [count for kind, _, count in passes if kind == "global"] == [1, 2, 3, 3, 1, 3, 2]
+
+
+def test_plan_codes_mark_each_pass():
+    subs = tbit.substages(8192)
+    passes = tbit.plan_passes(subs, 2048, 2)
+    codes = tbit.plan_codes(subs, passes, 2)
+    assert [(1 << (c & 31), 1 << ((c >> 5) & 31)) for c in codes] == [(j, k) for k, j in subs]
+    starts = {first: kind for kind, first, _ in passes}
+    groups = {f for _, first, count in passes for f, _ in tbit.plan_groups(subs, first, count, 2)}
+    for s, c in enumerate(codes):
+        assert bool(c & tbit.PASS_START) == (s in starts)
+        assert bool(c & tbit.GLOBAL) == (starts.get(s) == "global")
+        assert bool(c & tbit.GROUP_START) == (s in groups)
+    codes, count = tbit.c_plan(subs)  # the engine's tile and group size
+    assert list(codes) == tbit.plan_codes(subs, tbit.plan_passes(subs, tbit.NETWORK_TILE))
+    assert count == len(subs)
+    with pytest.raises(ValueError):
+        tbit.c_plan(subs * 20)  # more than MAX_SUBS
+
+
 def test_bitonic_rejects_bad_planes():
     key = torch.zeros(1024, dtype=torch.int32)
     with pytest.raises(TypeError):

@@ -24,6 +24,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from henjou_torch.accel import bitonic as tbit
 from henjou_torch.accel import bitonic_net as bn
 from henjou_torch.tools import exp_bitonic as t1
 from henjou_torch.tools import exp_bitonic2 as t2
@@ -292,6 +293,120 @@ def test_to_state_bitcasts_payloads():
     f = torch.linspace(-1, 1, 1024)
     st = bn.to_state(key, f)
     assert st.dtype == torch.int32 and torch.equal(st[1].view(torch.float32), f)
+
+
+# ---------------- the keyed network engine, modelled on the CPU ----------------
+
+
+def _word_model(state, subs, tile, *, whole, group=tbit.NETWORK_GROUP):
+    """csrc/keyed_network.cuh in plain torch, group by group as the kernel
+    runs the plan of `bitonic.plan_passes` and `plan_groups`: int64 words
+    key << 32 | source (ordered as the kernel's unsigned words with the
+    key's sign bit flipped); each group's thread holds the words of the
+    elements spread(g) | offset(a), within each tile for a local pass and
+    over the whole array for a global one; then the gather through the
+    sources. `whole` compares whole words (bitonic_sort), else the key
+    halves (net_walk)."""
+    n = state.shape[1]
+    w = (state[0].long() << 32) | torch.arange(n)
+    tl = min(tile, n)
+
+    def above(a, b):
+        return a > b if whole else (a >> 32) > (b >> 32)
+
+    def settle(i, j, k, mine, other):
+        take_min = ((i & j) == 0) == ((i & k) == 0)
+        return torch.where(torch.where(take_min, above(mine, other), above(other, mine)),
+                           other, mine)
+
+    def run_group(first, count, span, bases):
+        """One group over blocks of `span` elements at `bases` ([B, 1])."""
+        run = subs[first:first + count]
+        js = [j for _, j in run]
+        assert count <= group and len(set(js)) == count and max(js) < span
+        b = torch.arange(span >> count)
+        for pos in sorted(j.bit_length() - 1 for j in js):  # a zero bit at each
+            b = ((b >> pos) << (pos + 1)) | (b & ((1 << pos) - 1))
+        at = [bases + (b | sum(js[q] for q in range(count) if (a >> q) & 1))
+              for a in range(1 << count)]
+        assert torch.equal(torch.cat([x.reshape(-1) for x in at]).sort().values, torch.arange(n))
+        ws = [w[x] for x in at]
+        for q, (k, j) in enumerate(run):
+            for a in range(1 << count):
+                if not (a >> q) & 1:
+                    h = a | (1 << q)
+                    ws[a], ws[h] = (settle(at[a], j, k, ws[a], ws[h]),
+                                    settle(at[h], j, k, ws[h], ws[a]))
+        for x, v in zip(at, ws):
+            w[x] = v
+
+    for kind, first, count in tbit.plan_passes(subs, tile, group):
+        if kind == "local":
+            for f, c in tbit.plan_groups(subs, first, count, group):
+                run_group(f, c, tl, torch.arange(0, n, tl)[:, None])
+        else:
+            assert min(j for _, j in subs[first:first + count]) >= tl
+            run_group(first, count, n, torch.zeros(1, 1, dtype=torch.long))
+    src = w & 0xFFFFFFFF
+    return torch.cat([(w >> 32).to(torch.int32)[None], state[1:, src]])
+
+
+def _keys(kind, n, rng):
+    """[n] int32 keys: "ties" in [0, 32), "negative" over the whole int32
+    range with its two extremes and repeats."""
+    if kind == "ties":
+        return rng.integers(0, 32, n).astype(np.int32)
+    key = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    key[:8] = [-2**31, 2**31 - 1, -1, 0, -2**31, 2**31 - 1, -1, 0]
+    key[8:n // 4] = key[rng.integers(0, 8, n // 4 - 8)]
+    return key
+
+
+def test_word_order_is_the_signed_key_order():
+    """The kernel's words ((key ^ 0x80000000) << 32 | src, unsigned) order
+    as the model's (key << 32 | src, signed), negative keys included."""
+    rng = np.random.default_rng(80)
+    key = _keys("negative", 4096, rng)
+    src = np.arange(4096, dtype=np.uint64)
+    kernel_words = ((key.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64) << 32) | src
+    model_words = (key.astype(np.int64) << 32) | src.astype(np.int64)
+    assert np.array_equal(np.argsort(kernel_words, kind="stable"),
+                          np.argsort(model_words, kind="stable"))
+
+
+_MIXED = [(8192, 4096), (4096, 4096), (2048, 2048), (16, 16), (8192, 1024), (2, 1),
+          (4096, 2048), (4096, 2048), (64, 4096), (8192, 4096), (2048, 2048), (32, 16)]
+
+
+@pytest.mark.parametrize("tile,group", [(2048, 3), (4096, 3), (2048, 2)])
+@pytest.mark.parametrize("sched,keys", [("full", "ties"), ("full", "negative"),
+                                        ("odd55", "ties"), ("mixed k == j", "ties")])
+def test_word_model_equals_net_walk_plain(sched, keys, tile, group):
+    """The engine's arithmetic with the key-half compare equals the plain
+    network on every plane: ties never move, a k == j substage duplicates
+    as the plain version does, at n = 8192 (global passes at both tiles)."""
+    n = 8192
+    rng = np.random.default_rng(81)
+    st = rng.integers(-2**31, 2**31 - 1, (3, n)).astype(np.int32)
+    st[0] = _keys(keys, n, rng)
+    subs = {"full": bn.substages(n), "odd55": bn.substages(n)[:55], "mixed k == j": _MIXED}[sched]
+    state = torch.from_numpy(st)
+    want = bn.net_walk_plain(state, bn.make_schedule(subs, n, "cpu"))
+    assert torch.equal(_word_model(state, subs, tile, whole=False, group=group), want)
+
+
+@pytest.mark.parametrize("keys", ["ties", "negative"])
+@pytest.mark.parametrize("n,tile", [(1024, 2048), (8192, 2048), (8192, 4096)])
+def test_word_model_whole_equals_bitonic_sort_plain(n, tile, keys):
+    """The engine's arithmetic with the whole-word compare is the stable
+    sort of `bitonic_sort_plain`, payload included."""
+    rng = np.random.default_rng(82)
+    st = rng.integers(-2**31, 2**31 - 1, (4, n)).astype(np.int32)
+    st[0] = _keys(keys, n, rng)
+    state = torch.from_numpy(st)
+    want = tbit.bitonic_sort_plain(state[0], *state[1:])
+    got = _word_model(state, tbit.substages(n), tile, whole=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------- the four tools' entry points ----------------

@@ -25,13 +25,28 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [1024, 8192])
-def test_bitonic_kernel_matches_plain(cuda, n):
+def _sort_keys(kind, n, rng):
+    if kind == "ties":
+        return rng.integers(0, n // 8, n).astype(np.int32)
+    key = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)  # any int32
+    key[:4] = [-2**31, 2**31 - 1, -1, 0]
+    key[4:n // 4] = key[rng.integers(0, 4, n // 4 - 4)]  # and ties among them
+    return key
+
+
+@pytest.mark.parametrize("cols", [8, 17])
+@pytest.mark.parametrize("keys", ["ties", "negative"])
+@pytest.mark.parametrize("n", [1024, 2048, 1 << 16, 1 << 18])
+def test_bitonic_kernel_matches_plain(cuda, n, keys, cols):
+    """One launch of the network (and, at 17 columns, one more gather)
+    against the stable argsort, every column bit-equal; the inverse."""
     rng = np.random.default_rng(n)
-    key = torch.from_numpy(rng.integers(0, n // 8, n).astype(np.int32)).to(cuda)
-    # [n] planes and [n, 3] rows, as the sorted intersector passes them
+    key = torch.from_numpy(_sort_keys(keys, n, rng)).to(cuda)
+    # [n] planes and [n, 3] rows, as the sorted intersector passes them;
+    # 8 columns with the key and the lane id, or 17
+    shapes = (n, (n, 3), (n, 3)) if cols == 8 else (n, (n, 3), (n, 3)) + (n,) * 9
     planes = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
-              for shape in (n, (n, 3), (n, 3))]
+              for shape in shapes]
     lane = torch.arange(n, dtype=torch.int32, device=cuda)
     before = bitonic.LAUNCHES
     out = bitonic.bitonic_sort(key, *planes, lane)
@@ -154,12 +169,16 @@ def test_net_local_kernel_matches_plain(net_state):
 
 @pytest.mark.parametrize("inplace", [False, True])
 @pytest.mark.parametrize("switch", [False, True])
-def test_net_walk_kernel_matches_plain(net_state, inplace, switch):
-    """The cooperative walk of the full 136-substage schedule."""
+@pytest.mark.parametrize("which", ["full", "odd55", "mixed k == j"])
+def test_net_walk_kernel_matches_plain(net_state, which, inplace, switch):
+    """One cooperative launch of the network: the full 136-substage
+    schedule, the first 55 substages, and a schedule with k == j."""
     from henjou_torch.accel import bitonic_net as bn
 
     n = net_state.shape[1]
-    sched = bn.make_schedule(bn.substages(n), n, net_state.device)
+    subs = {"full": bn.substages(n), "odd55": bn.substages(n)[:55],
+            "mixed k == j": bn.MIXED_SUBS}
+    sched = bn.make_schedule(subs[which], n, net_state.device)
     ref = bn.net_walk_plain(net_state, sched)
     before = bn.LAUNCHES["net_walk"]
     state = net_state.clone() if inplace else net_state
@@ -168,7 +187,26 @@ def test_net_walk_kernel_matches_plain(net_state, inplace, switch):
     assert bn.LAUNCHES["net_walk"] == before + 1
     assert (out is state) == inplace
     assert torch.equal(out, ref)
-    assert bool((out[0][1:] >= out[0][:-1]).all())
+    if len(sched.subs) == len(bn.substages(n)):
+        assert bool((out[0][1:] >= out[0][:-1]).all())
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_net_walk_kernel_negative_keys_and_many_planes(cuda, inplace):
+    """Keys over the whole int32 range and 20 planes, so that three planes
+    are gathered after the network (and copied back in place)."""
+    from henjou_torch.accel import bitonic_net as bn
+
+    n = 1 << 16
+    rng = np.random.default_rng(8)
+    st = rng.integers(-2**31, 2**31 - 1, (20, n)).astype(np.int32)
+    st[0] = _sort_keys("negative", n, rng)
+    state = torch.from_numpy(st).to(cuda)
+    sched = bn.make_schedule(bn.substages(n), n, cuda)
+    ref = bn.net_walk_plain(state, sched)
+    out = bn.net_walk(state.clone() if inplace else state, sched, inplace=inplace)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("per_plane", [False, True])
