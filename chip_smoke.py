@@ -15,14 +15,19 @@ prints no result. Phases, each of which raises on failure:
    the inverse sort restoring the input exactly; the sort and the inverse
    timed by CUDA events and as CUDA graph replays;
 4. the binned intersector kernel against its plain version, closest and
-   any hit, on 65536 rays (half camera rays, half incoherent random rays)
-   on the sphere gallery and on contest frame 0: t within a relative
-   1e-5 where both hit, hit flips at most 1e-4 of the rays, prim equal
-   except where the other triangle is hit at the same t, and u, v within
-   1e-6 where both hit the same triangle;
+   any hit, on 65536 rays (half camera rays, half incoherent random rays;
+   `henjou_torch.tools.time_intersectors.test_rays`) on the sphere
+   gallery and on contest frame 0, once as drawn and once sorted as the
+   main path's sorted wrapper hands them to the kernel (`sorted_rays`):
+   t, prim, u, v and hit bit-equal (the kernel is the warp-per-ray walk of
+   ``csrc/cluster_walk.cuh``), and within the general limits: t within a
+   relative 1e-5 where both hit, hit flips at most 1e-4 of the rays, prim
+   equal except where the other triangle is hit at the same t, and u, v
+   within 1e-6 where both hit the same triangle;
 5. the three cluster intersectors (flat scan ``cluster.cu``, two-level
    ``cluster_hbm.cu``, matrix form ``mxu.cu``) against their plain
-   versions on the same rays and scenes, with the limits of phase 4;
+   versions on the same scenes, with the limits of phase 4; the two-level
+   kernel, the other walk kernel, bit-equal and on both orders;
 6. the wavefront engine on the gallery at 64x36, 4 spp, 4096 lanes, once
    with the kernels and once with the plain versions passed explicitly:
    per-pixel RMSE of the mean colour at most 5e-3 (atomic film sums and a
@@ -69,7 +74,9 @@ binned counts of phases 9-10, the two-level kernel's of phases 11-12 and
 the flat and matrix kernels' of phase 7, and the network kernels' of
 phase 13 (its tools' rows are that path). The line before the last is the
 card's name and power limit; before that, one JSON line with each
-kernel's launches, error against its plain version, times, the bound
+kernel's launches, error against its plain version, times (`ms` on the
+unsorted rays; for the two walk kernels also `sorted_ms` on the sorted
+ones), the bound
 (the least time the card could take for the same work: bytes moved at
 3.35 TB/s against operations at 67 TFLOP/s f32, whichever is larger; an
 intersector's operations are its triangle tests, counted as the
@@ -91,17 +98,21 @@ import time
 import numpy as np
 import torch
 
+from henjou_torch.tools.time_intersectors import N_RAYS, cuda_ms, graph_ms
+
 TOL_T_REL = 1e-5
 TOL_FLIPS = 1e-4
 TOL_UV = 1e-6  # absolute, where both hit the same triangle
 TOL_ENGINE_RMSE = 5e-3
 GALLERY = "scenes/sphere_gallery_option.json"
 CONTEST = "scenes/rtcamp_720_option.json"
-N_RAYS = 1 << 16
 # binned light query against dense Moller-Trumbore: two formulas, as in
 # tests/test_torch_accel.py's binned-vs-brute-force limit
 TOL_T_REL_FORMULAS = 1e-4
 CLUSTER_KERNELS = ("cluster", "cluster_hbm", "mxu")
+# the kernels over csrc/cluster_walk.cuh: bit-equal to their plain
+# versions, on the main path's ray order too
+WALK_KERNELS = ("binned", "cluster_hbm")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -137,20 +148,6 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of `fn()` over `reps` runs after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time for `n_bytes` of memory traffic
     and `n_ops` f32 operations at the card's peaks."""
@@ -167,27 +164,6 @@ def intersect_bound(packed, n_rays: int, visits: int, kind: str) -> tuple[float,
                      if isinstance(t, torch.Tensor))
     return bound(n_rays * RAY_BYTES + pack_bytes,
                  visits * TRIS_PER_CLUSTER * FLOPS_PER_TEST[kind])
-
-
-def graph_ms(fn, reps: int = 20):
-    """Mean ms of one replay of `fn()` captured in a CUDA graph: the time
-    its kernels hold the device without the host's per-launch cost (a
-    replay submits them all at once). None when the call cannot be
-    captured."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up off the capture, as torch.cuda.graph asks
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            fn()
-    except RuntimeError as e:
-        log(f"[graph] capture failed: {e}")
-        return None
-    return cuda_ms(graph.replay, reps)
 
 
 def _fmt_ms(ms) -> str:
@@ -269,24 +245,11 @@ def phase_sort(dev, results):
                               graph_ms=graphs["kernel"], inverse_graph_ms=graphs["inverse"])
 
 
-def _test_rays(renderer, accel, cam, dev, rng):
-    """N_RAYS rays: half jittered camera rays through random pixels, half
-    with origins uniform in the scene box and uniform directions."""
-    from henjou_torch.runtime.camera import camera_rays
-    from henjou_torch.sampling.cmj import make_cmj_state
-
-    half = N_RAYS // 2
-    w, h = renderer.option.image_width, renderer.option.image_height
-    pix = torch.from_numpy(rng.integers(0, w * h, half)).to(dev)
-    o_c, d_c, _ = camera_rays(cam, w, h, pix, make_cmj_state(0, pix, 0))
-    lo = accel.scene_lo.cpu().numpy()
-    hi = accel.scene_hi.cpu().numpy()
-    o_r = rng.uniform(lo, hi, (half, 3)).astype(np.float32)
-    d_r = rng.normal(size=(half, 3)).astype(np.float32)
-    d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
-    o = torch.cat([o_c, torch.from_numpy(o_r).to(dev)]).contiguous()
-    d = torch.cat([d_c, torch.from_numpy(d_r).to(dev)]).contiguous()
-    return o, d
+def _bit_equal(name, k, p):
+    """The redesigned walk kernels equal their plain versions to the bit."""
+    for field, a, b in zip(("t", "prim", "u", "v", "hit"), k, p):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[{name}] {field} differs from the plain version")
 
 
 def _check_intersections(name, tri_verts, o, d, k, p, any_hit):
@@ -328,36 +291,70 @@ def _check_intersections(name, tri_verts, o, d, k, p, any_hit):
     return max(float(err.max()) if both.any() else 0.0, uv_err)
 
 
+def _trace_vs_plain(name, mod, kind, fn, plain, packed, tri_verts, o, d, any_hit, reps):
+    """One trace of the kernel wrapper `fn` against its plain version on
+    rays o, d (tmin 1e-3): the redesigned walk kernels bit-equal, every
+    kernel within phase 4's limits; then the kernel timed over `reps`
+    calls. Returns (max error, kernel ms, plain ms, bound ms, bound by)."""
+    k = fn(packed, o, d, 1e-3, any_hit=any_hit)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    mod.VISITS = 0
+    e0.record()
+    p = plain(packed, o, d, 1e-3, any_hit=any_hit)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    visits = mod.VISITS
+    if kind in WALK_KERNELS:
+        _bit_equal(name, k, p)
+    err = _check_intersections(name, tri_verts, o, d, k, p, any_hit)
+    ms = cuda_ms(lambda: fn(packed, o, d, 1e-3, any_hit=any_hit), reps)
+    bnd = intersect_bound(packed, o.shape[0], visits, kind)
+    log(f"[{name}] {packed.num_clusters} clusters: kernel {ms:.4f} ms/trace, "
+        f"plain {plain_ms:.4f} ms/trace, {visits} (ray, cluster) visits, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return err, ms, plain_ms, *bnd
+
+
+def _record(results, kind, key, err, *times):
+    res = results.setdefault(kind, dict(max_abs_err=0.0, times={}))
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    res["times"][key] = times
+
+
+def _finish_times(res):
+    """The kernels line's numbers of a kernel: contest closest hit on the
+    unsorted rays, and `sorted_ms` on the sorted ones where timed."""
+    res["ms"], res["plain_ms"], res["bound_ms"], res["bound_by"] = \
+        res["times"]["contest_closest_unsorted"]
+    if "contest_closest_sorted" in res["times"]:
+        res["sorted_ms"] = res["times"]["contest_closest_sorted"][0]
+    res["library_ms"] = None
+
+
 def phase_intersect(dev, results):
+    """Kernel 1 against its plain version, closest and any hit, on the
+    gallery and contest frame 0, on the test rays unsorted and sorted."""
     from henjou_torch.accel import pallas_binned as pb
     from henjou_torch.runtime.renderer import Renderer
+    from henjou_torch.tools.time_intersectors import ray_orders, test_rays
 
     rng = np.random.default_rng(2)
-    worst = 0.0
     for label, path in (("gallery", GALLERY), ("contest", CONTEST)):
         r = Renderer(device=dev)
         r.load_render_option(path)
         r._load_scene_from_option()
         fs, accel, cam = r.frame_scene(0)
-        o, d = _test_rays(r, accel, cam, dev, rng)
-        for any_hit in (False, True):
-            name = f"intersect {label} {'any' if any_hit else 'closest'}"
-            k = pb.intersect_binned(accel, o, d, 1e-3, any_hit=any_hit)
-            torch.cuda.synchronize()
-            pb.VISITS = 0
-            p = pb.intersect_binned_plain(accel, o, d, 1e-3, any_hit=any_hit)
-            visits = pb.VISITS
-            worst = max(worst, _check_intersections(name, fs.tri_verts, o, d, k, p, any_hit))
-            ms = cuda_ms(lambda: pb.intersect_binned(accel, o, d, 1e-3, any_hit=any_hit), 20)
-            plain_ms = cuda_ms(lambda: pb.intersect_binned_plain(accel, o, d, 1e-3, any_hit=any_hit), 1)
-            bnd = intersect_bound(accel, o.shape[0], visits, "binned")
-            log(f"[{name}] {accel.num_clusters} clusters, group {accel.group}: "
-                f"kernel {ms:.4f} ms/trace, plain {plain_ms:.4f} ms/trace, "
-                f"{visits} (ray, cluster) visits, bound {bnd[0]:.4f} ms ({bnd[1]})")
-            results.setdefault("binned_times", {})[f"{label}_{'any' if any_hit else 'closest'}"] = (ms, plain_ms, *bnd)
-    ms, plain_ms, bound_ms, bound_by = results["binned_times"]["contest_closest"]
-    results["binned"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=None)
+        log(f"[intersect {label}] {accel.num_clusters} clusters, group {accel.group}")
+        for order, (o, d) in ray_orders(accel, *test_rays(r, accel, cam, dev, rng)).items():
+            for any_hit in (False, True):
+                hit = "any" if any_hit else "closest"
+                out = _trace_vs_plain(f"intersect {label} {hit} {order}", pb, "binned",
+                                      pb.intersect_binned, pb.intersect_binned_plain, accel,
+                                      fs.tri_verts, o, d, any_hit, 20)
+                _record(results, "binned", f"{label}_{hit}_{order}", *out)
+    _finish_times(results["binned"])
 
 
 def _cluster_kernel(kind):
@@ -381,8 +378,10 @@ def _cluster_kernel(kind):
 
 def phase_cluster_intersect(dev, results):
     """Kernels 3-5 against their plain versions, closest and any hit, on
-    the gallery and contest frame 0 (phase 4's rays and limits)."""
+    the gallery and contest frame 0 (phase 4's rays and limits; the
+    two-level kernel also on the sorted rays)."""
     from henjou_torch.runtime.renderer import Renderer
+    from henjou_torch.tools.time_intersectors import ray_orders, test_rays
 
     rng = np.random.default_rng(3)
     for label, path in (("gallery", GALLERY), ("contest", CONTEST)):
@@ -390,37 +389,23 @@ def phase_cluster_intersect(dev, results):
         r.load_render_option(path)
         r._load_scene_from_option()
         fs, accel, cam = r.frame_scene(0)
-        o, d = _test_rays(r, accel, cam, dev, rng)
+        orders = ray_orders(accel, *test_rays(r, accel, cam, dev, rng))
         for kind in CLUSTER_KERNELS:
             mod, fn, plain, _, build = _cluster_kernel(kind)
             t0 = time.monotonic()
             packed = build(fs)
             torch.cuda.synchronize()
-            pack_s = time.monotonic() - t0
-            for any_hit in (False, True):
-                name = f"{kind} {label} {'any' if any_hit else 'closest'}"
-                k = fn(packed, o, d, 1e-3, any_hit=any_hit)
-                torch.cuda.synchronize()
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                mod.VISITS = 0
-                e0.record()
-                p = plain(packed, o, d, 1e-3, any_hit=any_hit)
-                e1.record()
-                torch.cuda.synchronize()
-                plain_ms = e0.elapsed_time(e1)
-                bnd = intersect_bound(packed, o.shape[0], mod.VISITS, kind)
-                err = _check_intersections(name, fs.tri_verts, o, d, k, p, any_hit)
-                ms = cuda_ms(lambda: fn(packed, o, d, 1e-3, any_hit=any_hit), 10)
-                log(f"[{name}] {packed.num_clusters} clusters, pack {pack_s:.2f} s: "
-                    f"kernel {ms:.4f} ms/trace, plain {plain_ms:.4f} ms/trace, "
-                    f"{mod.VISITS} (ray, cluster) visits, bound {bnd[0]:.4f} ms ({bnd[1]})")
-                res = results.setdefault(kind, dict(max_abs_err=0.0, times={}))
-                res["max_abs_err"] = max(res["max_abs_err"], err)
-                res["times"][f"{label}_{'any' if any_hit else 'closest'}"] = (ms, plain_ms, *bnd)
+            log(f"[{kind} {label}] pack {time.monotonic() - t0:.2f} s")
+            for order, (o, d) in orders.items():
+                if order == "sorted" and kind not in WALK_KERNELS:
+                    continue
+                for any_hit in (False, True):
+                    hit = "any" if any_hit else "closest"
+                    out = _trace_vs_plain(f"{kind} {label} {hit} {order}", mod, kind, fn, plain,
+                                          packed, fs.tri_verts, o, d, any_hit, 10)
+                    _record(results, kind, f"{label}_{hit}_{order}", *out)
     for kind in CLUSTER_KERNELS:
-        r = results[kind]
-        r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"] = r["times"]["contest_closest"]
-        r["library_ms"] = None
+        _finish_times(results[kind])
 
 
 def phase_engine(dev):
@@ -552,12 +537,13 @@ def phase_light_query(dev):
         make_binned_light_intersector,
     )
     from henjou_torch.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou_torch.tools.time_intersectors import test_rays
 
     r = Renderer(device=dev)
     r.load_render_option(GALLERY)
     r._load_scene_from_option()
     fs, accel, cam = r.frame_scene(0)
-    o, d = _test_rays(r, accel, cam, dev, np.random.default_rng(4))
+    o, d = test_rays(r, accel, cam, dev, np.random.default_rng(4))
     fs_many = build_frame_scene(build_device_scene(_panel_lights_scene(), dev))
     rng = np.random.default_rng(5)
     o_m = rng.uniform(-9, 9, (N_RAYS, 3)).astype(np.float32)
@@ -895,8 +881,9 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=f"henjou_torch/csrc/{src}", replaces=replaces,
              launches=launches[key],
-             **{f: results[key][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")})
+             **{f: results[key][f] for f in ("max_abs_err", "ms", "sorted_ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms")
+                if f in results[key]})
         for name, key, src, replaces in table
     ]
     print(json.dumps({"kernels": kernels}))

@@ -12,11 +12,15 @@ get t = tmin and prim = 1). Before the kernel it clamps tmin >= 0 and
 tmax to the ray's exit from the scene AABB (`_scene_exit_t`), as the
 reference does.
 
-For CUDA tensors the wrapper launches ``csrc/binned.cu`` (one thread per
-ray); for CPU tensors it runs `_intersect_plain`, a loop over groups and
-clusters with a per-ray slab cull, vectorised over the rays. Both walk the
-clusters in index order with the same arithmetic, so they agree to the
-ulp, ties included.
+For CUDA tensors the wrapper launches ``csrc/binned.cu``, the cluster
+walk of ``csrc/cluster_walk.cuh`` (a warp per ray, a cluster's 128
+triangles across its lanes); for CPU tensors it runs `_intersect_plain`,
+a loop over groups and clusters with a per-ray slab cull, vectorised over
+the rays. Both test the same (ray, cluster) pairs in index order with the
+same arithmetic (`_baldwin`) and keep torch.min's first minimum, so they
+agree to the bit, ties included. `accel/cluster_walk.py` models the
+kernel's own order (lanes, box chunks, the shuffle reduction) for the
+tests.
 
 Not ported, because they exist only for the TPU: the tile worklist
 prepass (`_tile_worklists`, `_bitonic_rows`), `probe_ray_tile` and the
@@ -190,6 +194,26 @@ def _scene_exit_t(bc: BinnedClusters, ray_o, ray_d, tmin):
     return torch.where((t_exit >= t_enter) & (t_exit > tmin), t_exit, tmin)
 
 
+def _baldwin(cl, o, d, tmin, best_t):
+    """Baldwin-Weber of rays o, d [n,3] against one cluster's rows cl
+    [16, K], in the kernel's operation order (csrc/cluster_walk.cuh
+    `BinnedTest`). Returns (t, u, v, ok), each [n, K]."""
+    o = o[:, :, None]  # [n,3,1]
+    d = d[:, :, None]
+    nd = d[:, 0] * cl[0] + d[:, 1] * cl[1] + d[:, 2] * cl[2]
+    no = o[:, 0] * cl[0] + o[:, 1] * cl[1] + o[:, 2] * cl[2]
+    inv_nd = torch.where(nd.abs() > 1e-12, 1.0 / nd, 0.0)
+    tt = (cl[3] - no) * inv_nd
+    px = o[:, 0] + tt * d[:, 0]
+    py = o[:, 1] + tt * d[:, 1]
+    pz = o[:, 2] + tt * d[:, 2]
+    uu = cl[7] + cl[4] * px + cl[5] * py + cl[6] * pz
+    vv = cl[11] + cl[8] * px + cl[9] * py + cl[10] * pz
+    ok = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt > tmin[:, None]) & (tt < best_t[:, None]))
+    return tt, uu, vv, ok
+
+
 def _intersect_plain(bc: BinnedClusters, ray_o, ray_d, tmin, tmax, any_hit):
     """Plain PyTorch version of the kernel on clamped (tmin, tmax): groups,
     then clusters, in index order; per-ray slab culls against
@@ -223,23 +247,7 @@ def _intersect_plain(bc: BinnedClusters, ray_o, ray_d, tmin, tmax, any_hit):
                 continue
             VISITS += idx.numel()
             cl = rows[c]  # [16, K]
-            o = ray_o[idx][:, :, None]  # [n,3,1]
-            d = ray_d[idx][:, :, None]
-            tn = tmin[idx][:, None]
-            bt = best_t[idx][:, None]
-            nd = d[:, 0] * cl[0] + d[:, 1] * cl[1] + d[:, 2] * cl[2]
-            no = o[:, 0] * cl[0] + o[:, 1] * cl[1] + o[:, 2] * cl[2]
-            inv_nd = torch.where(nd.abs() > 1e-12, 1.0 / nd, 0.0)
-            tt = (cl[3] - no) * inv_nd
-            px = o[:, 0] + tt * d[:, 0]
-            py = o[:, 1] + tt * d[:, 1]
-            pz = o[:, 2] + tt * d[:, 2]
-            uu = cl[7] + cl[4] * px + cl[5] * py + cl[6] * pz
-            vv = cl[11] + cl[8] * px + cl[9] * py + cl[10] * pz
-            ok = (
-                (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                & (tt > tn) & (tt < bt)
-            )
+            tt, uu, vv, ok = _baldwin(cl, ray_o[idx], ray_d[idx], tmin[idx], best_t[idx])
             hit_any = ok.any(dim=1)
             if any_hit:
                 hit_idx = idx[hit_any]
@@ -276,6 +284,8 @@ def _intersect_cuda(bc: BinnedClusters, ray_o, ray_d, tmin, tmax, any_hit):
             raise ValueError(f"bc.{name} must be contiguous f32 on {ray_o.device}")
     if bc.rows.shape != (bc.num_groups * bc.group * 16, K) or bc.k != K:
         raise ValueError(f"bc.rows must be [Ctot*16, {K}], got {tuple(bc.rows.shape)}")
+    if bc.rows.data_ptr() % 16:
+        raise ValueError("bc.rows must be 16-byte aligned (the kernel loads float4)")
     r = ray_o.shape[0]
     ray_o = ray_o.contiguous()
     ray_d = ray_d.contiguous()

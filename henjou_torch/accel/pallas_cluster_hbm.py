@@ -11,10 +11,13 @@ JAX packs field for field.
 
 `intersect_pallas_hbm` keeps the contract of `intersect_pallas`
 (accel/pallas_cluster.py), with no clamp of tmin or tmax. For CUDA tensors
-it launches ``csrc/cluster_hbm.cu`` (one thread per ray: superclusters,
-then their clusters, in index order, each slab-tested against the ray's
-[tmin, best_t]); for CPU tensors it runs `_intersect_plain`, the same
-walk vectorised over the rays, which agrees with the kernel to the ulp.
+it launches ``csrc/cluster_hbm.cu``, the cluster walk of
+``csrc/cluster_walk.cuh`` (a warp per ray: superclusters, then their
+clusters, in index order, each slab-tested against the ray's [tmin,
+best_t]; a cluster's 128 triangles across the lanes); for CPU tensors it
+runs `_intersect_plain`, the same walk vectorised over the rays, which
+agrees with the kernel to the bit. `accel/cluster_walk.py` models the
+kernel's own order for the tests.
 The TPU kernel's per-tile frustum pre-pass and far plane are not ported:
 for one ray its own slab test subsumes both.
 
@@ -225,6 +228,9 @@ def _intersect_cuda(hc: HbmClusters, ray_o, ray_d, tmin, tmax, any_hit):
                 aabb=(hc.aabb, f32), aabb2=(hc.aabb2, f32))
     if hc.rows.shape != (hc.num_super * SC * 16, K) or hc.order.shape != (hc.num_super * SC, K):
         raise ValueError(f"hc.rows must be [C2*SC*16, {K}] and hc.order [C2*SC, {K}]")
+    if hc.rows.data_ptr() % 16 or hc.order.data_ptr() % 16:
+        raise ValueError("hc.rows and hc.order must be 16-byte aligned (the kernel loads "
+                         "float4 and int4)")
     args = [hc.rows.data_ptr(), hc.order.data_ptr(), hc.aabb.data_ptr(), hc.aabb.shape[1],
             hc.aabb2.data_ptr(), hc.aabb2.shape[1], hc.num_super]
     out = _launch(_kernel_fn(), "henjou_cluster_hbm_intersect", args,

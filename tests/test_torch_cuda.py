@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: 82 cases,
+32 of them the cluster walk of the binned and two-level kernels.
 
 These need an NVIDIA GPU and nvcc; without them they skip. The tests
 directory's conftest imports jax, which the GPU machine may not have, so
@@ -126,6 +127,82 @@ def test_cluster_kernels_match_plain(cuda, kind, any_hit):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert 0 < int(k[4].sum()) < n and not k[4][tmax == 0].any()
+
+
+def _walk_scene(n_tri, copies, n_rays, seed):
+    """`n_tri` small triangles in [-3, 3]^3, each repeated `copies` times
+    (copies tie in t, inside a cluster or across two), and rays from
+    [-4, 4]^3, half aimed at triangle centroids."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-3, 3, (n_tri, 1, 3))
+    tris = np.repeat((c + rng.normal(scale=0.25, size=(n_tri, 3, 3))).astype(np.float32),
+                     copies, axis=0)
+    o = rng.uniform(-4, 4, (n_rays, 3))
+    d = rng.normal(size=(n_rays, 3))
+    d[: n_rays // 2] = tris.mean(axis=1)[rng.integers(0, len(tris), n_rays // 2)] - o[: n_rays // 2]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tris, o.astype(np.float32), d.astype(np.float32)
+
+
+def _binned_pack(tris, group, dev, monkeypatch):
+    """pack_binned_np with `group` clusters per group (1 below the pack's
+    threshold of fine clusters; 16, 32 or 64 forced through it)."""
+    if group > 1:
+        c = -(-len(tris) // pb.K)
+        monkeypatch.setattr(pb, "MAX_FINE_CLUSTERS", 0)
+        monkeypatch.setattr(pb, "MAX_GROUPS", 1 if group == 64 else -(-c // group))
+    bc = pb.pack_binned_np(tris, dev)
+    assert bc.group == group
+    return bc
+
+
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("case", [
+    "binned group 1", "binned group 16", "binned group 32", "binned group 64",
+    "binned ties", "hbm", "hbm ties", "hbm 33 superclusters",
+])
+def test_walk_kernels_match_plain(cuda, monkeypatch, case, any_hit, order):
+    """binned.cu and cluster_hbm.cu (the warp-per-ray walk of
+    csrc/cluster_walk.cuh) against their plain versions, bit-equal: packs of
+    1, 16, 32 and 64 clusters per group (40 groups of 1: two box chunks;
+    64 clusters in a group: two cluster chunks), duplicated triangles, 33
+    superclusters, dead lanes (tmax 0 and tmax == tmin), 4093 rays (not a
+    multiple of a block's 4), unsorted or in the sorted wrapper's order."""
+    from henjou_torch.accel import pallas_cluster_hbm as hbm
+    from henjou_torch.accel.sorting import DEAD_KEY, ray_sort_key
+
+    n_tri, copies = {"hbm 33 superclusters": (66_000, 1)}.get(
+        case, (1700, 3) if "ties" in case else (5000, 1))
+    tris, o, d = _walk_scene(n_tri, copies, 4093, seed=9)
+    if case.startswith("binned"):
+        mod, fn, plain = pb, pb.intersect_binned, pb.intersect_binned_plain
+        packed = _binned_pack(tris, int(case.split()[-1]) if "group" in case else 1, cuda,
+                              monkeypatch)
+    else:
+        mod, fn, plain = hbm, hbm.intersect_pallas_hbm, hbm.intersect_pallas_hbm_plain
+        packed = hbm.pack_clusters_hbm_np(tris, cuda)
+        assert packed.num_super == (33 if "33" in case else 3)
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    n = o.shape[0]
+    lane = torch.arange(n, device=cuda)
+    tmin = torch.full((n,), 1e-3, device=cuda)
+    tmax = torch.where(lane % 7 == 0, 0.0, 20.0)
+    tmax = torch.where(lane % 11 == 0, tmin, tmax)
+    if order == "sorted":
+        lo = torch.from_numpy(tris.reshape(-1, 3).min(0)).to(cuda)
+        hi = torch.from_numpy(tris.reshape(-1, 3).max(0)).to(cuda)
+        key = ray_sort_key(o, d, lo, 1.0 / torch.clamp(hi - lo, min=1e-12))
+        perm = torch.argsort(torch.where(tmax > tmin, key, DEAD_KEY), stable=True)
+        o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
+    before = mod.LAUNCHES
+    k = fn(packed, o, d, tmin, tmax, any_hit=any_hit)
+    p = plain(packed, o, d, tmin, tmax, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert 0 < int(k[4].sum()) < n and not k[4][tmax <= tmin].any()
 
 
 @pytest.fixture
