@@ -40,15 +40,23 @@ prints no result. Phases, each of which raises on failure:
    to ties, t within a relative 1e-4 (Baldwin-Weber against
    Moller-Trumbore, two formulas) and the light's area within 1e-5;
 9. the gallery render through the CLI (``henjou_torch.render.main``) at 16
-   spp: a decodable 512x288 PNG, a finite film, spp/s and Mrays/s;
-10. contest frame 0 at 1280x720, Default mode, 4 spp, through the
-    Renderer API, with per-phase seconds;
+   spp: a decodable 512x288 PNG, a finite film, spp/s and Mrays/s; every
+   ``initialize_and_render`` on the card first runs the hardware canary
+   (``henjou_torch/runtime/canary.py``, which raises when its film is off),
+   and its RMSE is logged once;
+10. the contest option file as shipped (``scenes/rtcamp_720_option.json``:
+    DenoiseTemporal, two frames of the animated camera) at 1280x720, 4 spp,
+    through the Renderer API: two decodable PNGs, finite films and
+    finalized images, the binned kernel launched inside ``_finalize`` (the
+    temporal depth probe) on both frames, frame 1 through
+    ``temporal_accumulate``; per frame the render, finalize and PNG
+    seconds;
 11. the scale test (``henjou_torch.tools.scale_test``) at full width: a
-    194,044-triangle scene at 1920x1080, 2 spp, two-sample MIS, in two
+    194,044-triangle scene at 1920x1080, 1 spp, two-sample MIS, in two
     rows (binned+bitonic, and the two-level kernel in the argsort
     wrapper), each rendered once untimed and once timed: finite films,
     seconds, traces, Mrays/s and the RMSE between the rows;
-12. contest frame 0 as in 10 with ``mis_mode="ref"``;
+12. contest frame 0 with ``mis_mode="ref"``, Default mode, 2 spp;
 13. the payload-carrying bitonic network (``csrc/bitonic_net.cu``, four
     kernels): every row of the four bitonic-schedule tools
     (``henjou_torch.tools.exp_bitonic``, ``exp_bitonic2``,
@@ -62,15 +70,28 @@ prints no result. Phases, each of which raises on failure:
     form its wrapper takes, against its plain version at 65,536 x 10;
     then each full-sort design and each 136-launch row timed twice, by
     CUDA events around the calls and as the replay of a CUDA graph, which
-    leaves out the host's per-launch cost.
+    leaves out the host's per-launch cost;
+14. the gallery through the CLI in Denoise, DenoiseUpScale2X and Debug at
+    4 spp (copies of its option file): a 512x288 PNG (UpScale2X rendered
+    at 256x144), and four 512x288 PNGs for Debug; it runs between phases 9
+    and 10;
+15. the denoiser on the card against the CPU, on frame 0's AOVs from phase
+    10 and a known synthetic reprojection (+1.3, -0.6 pixels):
+    ``denoise_atrous_var``, ``temporal_accumulate``,
+    ``denoise_temporal_reprojected``, ``upscale2x_guided`` (from the AOVs
+    at half size, guided by the full-size ones) and ``upscale2x`` on CUDA
+    and CPU tensors, within the CPU parity tests' rtol 1e-4, atol 1e-5, and
+    each one's ms per call at 1280x720 by CUDA events; it runs after
+    phase 10.
 
 Launch counters are zeroed just before, and read just after, each path
 that drives kernels through a user's entry point: phase 7's kernel
-renders (the cluster intersectors, which no renderer routes), phases 9-10
-(the default main path: bitonic and binned) and phases 11-12 (this
-slice's path: bitonic, binned and the two-level kernel). Each kernel of a
-path must have grown there. The kernels line reports the bitonic and
-binned counts of phases 9-10, the two-level kernel's of phases 11-12 and
+renders (the cluster intersectors, which no renderer routes), phases 9,
+14 and 10 (the main path: bitonic and binned, the canaries and the
+finalize probes included) and phases 11-12 (the scale path: bitonic,
+binned and the two-level kernel). Each kernel of a path must have grown
+there. The kernels line reports the bitonic and binned counts of phases
+9, 14 and 10, the two-level kernel's of phases 11-12 and
 the flat and matrix kernels' of phase 7, and the network kernels' of
 phase 13 (its tools' rows are that path). The line before the last is the
 card's name and power limit; before that, one JSON line with each
@@ -106,6 +127,7 @@ TOL_UV = 1e-6  # absolute, where both hit the same triangle
 TOL_ENGINE_RMSE = 5e-3
 GALLERY = "scenes/sphere_gallery_option.json"
 CONTEST = "scenes/rtcamp_720_option.json"
+GALLERY_SIZE = (512, 288)  # the gallery option file's width and height
 # binned light query against dense Moller-Trumbore: two formulas, as in
 # tests/test_torch_accel.py's binned-vs-brute-force limit
 TOL_T_REL_FORMULAS = 1e-4
@@ -601,44 +623,166 @@ def phase_gallery(tmp):
         raise AssertionError(f"render.main returned {rc}")
     _decode_png(out + "_000.png", 512, 288)
     with open(stats_path) as f:
-        fr = json.load(f)["frames"][0]
+        stats = json.load(f)
+    fr = stats["frames"][0]
     if not fr["film_finite"]:
         raise AssertionError("[gallery] film not finite")
+    if "canary_rmse" not in stats["setup"]:
+        raise AssertionError("[gallery] the hardware canary did not run")
+    log(f"[canary] per-pixel RMSE {stats['setup']['canary_rmse']:.3g} against the pinned film "
+        f"(tolerance 5e-3), {stats['setup']['canary_s']:.2f} s")
     log(f"[gallery] 512x288 {fr['spp']} spp: render {fr['render_s']:.3f} s, "
         f"{fr['spp'] / fr['render_s']:.3f} spp/s, {fr['n_traces']} traces, "
         f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s; CLI wall {wall:.2f} s")
 
 
 def phase_contest(dev, tmp, mis_mode="single"):
+    """Phase 10 (the option file as shipped, two frames) or, with
+    ``mis_mode="ref"``, phase 12 (frame 0 in Default mode). Returns frame
+    0's AOVs."""
+    from henjou_torch.accel import pallas_binned
     from henjou_torch.runtime.options import RenderMode
     from henjou_torch.runtime.renderer import Renderer
 
+    shipped = mis_mode == "single"
     t0 = time.monotonic()
     r = Renderer(device=dev)
     r.load_render_option(CONTEST)
-    r.option = dataclasses.replace(
-        r.option, render_mode=RenderMode.DEFAULT, end_frame=1, max_spp=4, mis_mode=mis_mode,
-        image_name=os.path.join(tmp, f"contest_{mis_mode}"),
-    )
+    over = dict(max_spp=4, mis_mode=mis_mode, image_name=os.path.join(tmp, f"contest_{mis_mode}"))
+    if not shipped:
+        # 2 spp keeps the script inside ~5 min
+        over.update(render_mode=RenderMode.DEFAULT, end_frame=1, max_spp=2)
+    r.option = dataclasses.replace(r.option, **over)
+    if shipped and (r.option.render_mode != RenderMode.DENOISE_TEMPORAL
+                    or r.option.end_frame - r.option.start_frame != 2):
+        raise AssertionError(f"[contest] {CONTEST} is not DenoiseTemporal over two frames")
     r._load_scene_from_option()
+    finalize = r._finalize
+    seen = []
+
+    def counted(aovs, frame=None):
+        # the binned launches of the finalize (the temporal depth probe)
+        before = pallas_binned.LAUNCHES
+        out = finalize(aovs, frame=frame)
+        seen.append((aovs, pallas_binned.LAUNCHES - before, np.isfinite(out).all()))
+        return out
+
+    r._finalize = counted
     written = r.initialize_and_render()
     wall = time.monotonic() - t0
-    _decode_png(written[0], 1280, 720)
-    fr = r.frame_stats[0]
-    if not fr["film_finite"]:
-        raise AssertionError("[contest] film not finite")
+    if len(written) != len(seen):
+        raise AssertionError(f"[contest] {len(written)} PNGs for {len(seen)} frames")
+    for path in written:
+        _decode_png(path, 1280, 720)
     s = r.setup_stats
-    log(f"[contest mis_mode={mis_mode}] 1280x720 {fr['spp']} spp: wall {wall:.2f} s; load {s['load_s']:.2f} s, "
-        f"device scene {s['device_scene_s']:.2f} s, flatten+pack {fr['build_s']:.2f} s, "
-        f"render {fr['render_s']:.2f} s ({fr['spp'] / fr['render_s']:.3f} spp/s, "
-        f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s), PNG {fr['finalize_png_s']:.2f} s")
+    log(f"[contest mis_mode={mis_mode}] {r.option.render_mode.value}, {len(written)} frame(s) "
+        f"{r.option.image_width}x{r.option.image_height}: wall {wall:.2f} s; "
+        f"load {s['load_s']:.2f} s, "
+        f"device scene {s['device_scene_s']:.2f} s")
+    for fr, (_, probe_launches, image_finite) in zip(r.frame_stats, seen):
+        if not fr["film_finite"] or not image_finite:
+            raise AssertionError(f"[contest] frame {fr['frame']}: film or image not finite")
+        if shipped and probe_launches == 0:
+            raise AssertionError(f"[contest] frame {fr['frame']}: no binned launch in _finalize")
+        log(f"[contest mis_mode={mis_mode}] frame {fr['frame']}: {fr['spp']} spp, "
+            f"flatten+pack {fr['build_s']:.2f} s, render {fr['render_s']:.2f} s "
+            f"({fr['spp'] / fr['render_s']:.3f} spp/s, "
+            f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s), "
+            f"finalize {fr['finalize_s']:.3f} s ({probe_launches} binned launches), "
+            f"PNG {fr['finalize_png_s'] - fr['finalize_s']:.3f} s, total {fr['total_s']:.2f} s")
+    if shipped and (r._temporal_raw is None or r._temporal_prev_frame != 1
+                    or not float(r._temporal_raw[2].max()) > float(seen[1][0]["count"].max())):
+        raise AssertionError("[contest] frame 1 did not merge frame 0's history")
+    return seen[0][0]
+
+
+def phase_gallery_modes(tmp):
+    """Phase 14: the gallery through the CLI in the other render modes."""
+    from henjou_torch import render
+
+    with open(GALLERY) as f:
+        doc = json.load(f)
+    for mode in ("Denoise", "DenoiseUpScale2X", "Debug"):
+        doc["Render_mode"] = mode
+        path = os.path.join(tmp, f"gallery_{mode}.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        out = os.path.join(tmp, f"gallery_{mode}")
+        stats_path = out + "_stats.json"
+        t0 = time.monotonic()
+        if render.main([path, "--spp", "4", "--out", out, "--stats", stats_path]) != 0:
+            raise AssertionError(f"[gallery {mode}] render.main failed")
+        wall = time.monotonic() - t0
+        w, h = GALLERY_SIZE
+        if mode == "Debug":
+            for key in ("position", "basecolor", "normal", "texcoord"):
+                _decode_png(f"{out}_{key}_000.png", w, h)
+            log(f"[gallery {mode}] four {w}x{h} AOV PNGs; CLI wall {wall:.2f} s")
+            continue
+        _decode_png(out + "_000.png", w, h)
+        with open(stats_path) as f:
+            fr = json.load(f)["frames"][0]
+        film = [h // 2, w // 2] if mode == "DenoiseUpScale2X" else [h, w]
+        if fr["film_shape"] != film or not (fr["film_finite"] and fr["image_finite"]):
+            raise AssertionError(f"[gallery {mode}] film {fr['film_shape']}, finite "
+                                 f"{fr['film_finite']}, image finite {fr['image_finite']}")
+        log(f"[gallery {mode}] film {film[1]}x{film[0]} -> {w}x{h} PNG, {fr['spp']} spp: render "
+            f"{fr['render_s']:.3f} s, finalize {fr['finalize_s']:.3f} s; CLI wall {wall:.2f} s")
+
+
+def phase_denoiser(dev, aovs):
+    """Phase 15: the denoiser's functions on CUDA against the CPU on
+    contest frame 0's AOVs; ms per call by CUDA events."""
+    from henjou_torch.post import denoise as dn
+
+    h, w = aovs["color"].shape[:2]
+    iy, ix = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
+                         indexing="ij")
+    arrays = dict(color=aovs["color"], albedo=aovs["albedo"], normal=aovs["normal"],
+                  variance=aovs["variance"], count=aovs["count"].astype(np.float32),
+                  # a known reprojection, fractional parts 0.8 and 0.9
+                  px=ix + 0.5 + 1.3, py=iy + 0.5 - 0.6, valid=np.ones((h, w), bool))
+
+    def calls(x):
+        c, a, n = x["color"], x["albedo"], x["normal"]
+        return {
+            "denoise_atrous_var": (dn.denoise_atrous_var, (c, a, n, x["variance"])),
+            "temporal_accumulate": (dn.temporal_accumulate,
+                                    (c, x["variance"], x["count"], a, n, c, x["variance"],
+                                     x["count"], a, n, x["px"], x["py"], x["valid"])),
+            "denoise_temporal_reprojected": (dn.denoise_temporal_reprojected,
+                                             (c, a, n, c, a, n, x["px"], x["py"], x["valid"])),
+            "upscale2x_guided": (dn.upscale2x_guided,
+                                 (c[::2, ::2], a[::2, ::2], n[::2, ::2], a, n)),
+            "upscale2x": (dn.upscale2x, (c[::2, ::2],)),
+        }
+
+    on = {d: calls({k: torch.from_numpy(np.ascontiguousarray(v)).to(d) for k, v in arrays.items()})
+          for d in ("cpu", dev)}
+    for name, (fn, args) in on[dev].items():
+        got = fn(*args)
+        t0 = time.monotonic()
+        want = on["cpu"][name][0](*on["cpu"][name][1])
+        cpu_s = time.monotonic() - t0
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        worst = 0.0
+        for g, c in zip(got, want):
+            g = g.cpu()
+            if not torch.allclose(g, c, rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"[denoiser] {name}: CUDA differs from the CPU by "
+                                     f"{float((g - c).abs().max())}")
+            worst = max(worst, float((g - c).abs().max()))
+        ms = cuda_ms(lambda: fn(*args), 5)
+        log(f"[denoiser] {name} {w}x{h}: CUDA {ms:.3f} ms per call (events), CPU {cpu_s:.3f} s, "
+            f"max abs diff {worst:.3g}")
 
 
 def phase_scale(dev):
     from henjou_torch.tools.scale_test import ROWS, run_scale_test
 
     t0 = time.monotonic()
-    out = run_scale_test(dev, log=log)
+    # 1 spp per row (the tool's default is 2) keeps the script inside ~5 min
+    out = run_scale_test(dev, spp=1, log=log)
     for name in ROWS:
         row = out["rows"][name]
         if not row["film_finite"]:
@@ -843,17 +987,21 @@ def main() -> int:
             m.LAUNCHES = 0
 
     with tempfile.TemporaryDirectory() as tmp:
-        # the default main path
+        # the main path: the gallery in every render mode, then the contest
+        # option file as shipped
         zero()
         phase_gallery(tmp)
         after_gallery = (bitonic.LAUNCHES, pallas_binned.LAUNCHES)
         if min(after_gallery) == 0:
             raise AssertionError(f"[gallery] a kernel was not launched: {after_gallery}")
-        phase_contest(dev, tmp)
+        phase_gallery_modes(tmp)
+        after_modes = (bitonic.LAUNCHES, pallas_binned.LAUNCHES)
+        aovs0 = phase_contest(dev, tmp)
         launches = {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES}
-        if min(launches[k] - v for k, v in zip(("bitonic", "binned"), after_gallery)) <= 0:
+        if min(launches[k] - v for k, v in zip(("bitonic", "binned"), after_modes)) <= 0:
             raise AssertionError(f"[contest] a kernel was not launched: {launches}")
-        log(f"[launches] main path (gallery + contest): {launches}")
+        log(f"[launches] main path (gallery in four modes + contest as shipped): {launches}")
+        phase_denoiser(dev, aovs0)
         # this slice's path: the scale test and contest frame 0 with mis_mode="ref"
         zero()
         phase_scale(dev)

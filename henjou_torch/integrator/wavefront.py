@@ -30,8 +30,9 @@ Differences from the JAX engine, none of which change an estimate:
 - The trace count is an exact int64 instead of an f32 sum.
 
 These raise NotImplementedError until their ROADMAP items land:
-adaptive ``sample_counts`` and ``light_ris`` (Queue 1 item 7), and the
-pool re-sort ``pool_key_fn`` (HENJOU_POOL_SORT, Queue 1 item 7).
+adaptive ``sample_counts``, ``light_ris`` and the pool re-sort
+``pool_key_fn`` (HENJOU_POOL_SORT), all ROADMAP Queue 1, opt-in samplers
+and allocation.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ from henjou_torch.runtime.camera import Camera, camera_rays
 from henjou_torch.sampling.cmj import CMJState, cmj_1d, cmj_2d, make_cmj_state
 from henjou_torch.sampling.light_sample import intersect_lights, light_table, sample_light
 from henjou_torch.scene.scenedata import FrameScene
+
+
+# the ROADMAP item that ports adaptive counts, light_ris and the pool re-sort
+SAMPLERS_ITEM = "ROADMAP Queue 1, opt-in samplers and allocation"
 
 
 class WavefrontFilm(NamedTuple):
@@ -105,13 +110,13 @@ def wavefront_render(
     light_isect = light_isect_fn or intersect_lights
     if sample_counts is not None or sample_base is not None:
         raise NotImplementedError(
-            "adaptive sample_counts are not ported yet: ROADMAP Queue 1 item 7"
+            f"adaptive sample_counts are not ported yet: {SAMPLERS_ITEM}"
         )
     if light_ris >= 2:
-        raise NotImplementedError("light_ris is not ported yet: ROADMAP Queue 1 item 7")
+        raise NotImplementedError(f"light_ris is not ported yet: {SAMPLERS_ITEM}")
     if pool_key_fn is not None:
         raise NotImplementedError(
-            "the pool re-sort (HENJOU_POOL_SORT) is not ported yet: ROADMAP Queue 1 item 7"
+            f"the pool re-sort (HENJOU_POOL_SORT) is not ported yet: {SAMPLERS_ITEM}"
         )
     if use_nee and bsdf_eval is None:
         raise ValueError("nee/mis need bsdf_eval")

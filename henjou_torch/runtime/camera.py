@@ -42,6 +42,51 @@ def make_camera(position, direction, fov_rad: float, device, up=None,
                   right=t(right), f=t(f))
 
 
+def camera_rays_centers(cam: Camera, width: int, height: int):
+    """Deterministic pixel-centre primary rays for the whole frame (no CMJ
+    jitter), the first-hit probes' rays. Returns (origin[W*H,3],
+    dir[W*H,3]) in row-major pixel order."""
+    pix = torch.arange(width * height, dtype=torch.int64, device=cam.position.device)
+    py_i = torch.div(pix, width, rounding_mode="floor")
+    px = (pix - py_i * width).to(torch.float32) + 0.5
+    py = py_i.to(torch.float32) + 0.5
+    u = (2.0 * px - width) / height
+    v = (height - 2.0 * py) / height
+    d = normalize(
+        u[:, None] * cam.right[None, :]
+        + v[:, None] * cam.up[None, :]
+        + cam.f * cam.direction[None, :]
+    )
+    o = cam.position[None, :].expand(d.shape)
+    return o, d
+
+
+def project_to_pixel(cam: Camera, pts, width: int, height: int):
+    """Inverse of the raygen mapping: world points [N,3] -> continuous
+    pixel coordinates (px[N], py[N], valid[N]).
+
+    The reference basis is not orthogonal in general (the contest camera
+    keeps world up as the film vertical while the direction pitches,
+    dot(up, dir) = -0.27), so this solves the general 3x3 system
+    w = P - pos = a*right + b*up + c*dir with the reciprocal basis (triple
+    products); a = s*u, b = s*v, c = s*f. valid = the point lies in front
+    of the camera (c > 0)."""
+    w = pts - cam.position[None, :]
+    r, up, dd = cam.right, cam.up, cam.direction
+    det = torch.dot(r, torch.linalg.cross(up, dd))
+    det = torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    a = (w @ torch.linalg.cross(up, dd)) / det
+    b = (w @ torch.linalg.cross(dd, r)) / det
+    c = (w @ torch.linalg.cross(r, up)) / det
+    valid = c > 1e-6
+    denom = torch.where(valid, c, 1.0)
+    u = cam.f * a / denom
+    v = cam.f * b / denom
+    px = (u * height + width) * 0.5
+    py = (height - v * height) * 0.5
+    return px, py, valid
+
+
 def camera_rays(cam: Camera, width: int, height: int, pixel_idx, state: CMJState):
     """Primary rays for pixel indices [R] (int64) with one CMJ 2D jitter
     drawn from the per-lane state. Returns (origin[R,3], dir[R,3], state)."""

@@ -1,23 +1,30 @@
-"""Renderer facade: load -> build -> frame loop -> export.
+"""Renderer facade: canary -> load -> build -> frame loop -> finalize ->
+export.
 
 Port of the wavefront half of henjou_tpu/runtime/renderer.py: `build`,
-`_select_accel`/`_accel_adapters`, `render_frame`,
-`_render_frame_wavefront` (pixel chunks, spp batches and the
-chunk-granular deadline) and `initialize_and_render` (the time budget and
+`_select_accel`/`_accel_adapters`, `render_frame` (with checkpoint/resume
+after every spp batch), `_render_frame_wavefront` (pixel chunks, spp
+batches and the chunk-granular deadline), `render_debug`, `_finalize`
+(every render mode: the spatial SVGF denoiser, temporal reprojection and
+accumulation, the guided 2x upscale) with its first-hit probes, and
+`initialize_and_render` (the hardware canary on CUDA, the time budget and
 the PNG naming). The port renders with the wavefront engine on every
 device; the accelerator is the binned intersector inside the bitonic ray
-sort for scenes over 256 triangles, brute force below. With
-``mis_mode="ref"`` (two-sample MIS) the per-bounce light query is dense
-(`intersect_lights`) up to BINNED_LIGHT_THRESHOLD emissive triangles and
-goes through the binned intersector over the emissive subset above it
+sort for scenes over 256 triangles, brute force below; the probes trace
+through the raw binned intersector. With ``mis_mode="ref"`` (two-sample
+MIS) the per-bounce light query is dense (`intersect_lights`) up to
+BINNED_LIGHT_THRESHOLD emissive triangles and goes through the binned
+intersector over the emissive subset above it
 (`make_binned_light_intersector`, cached with the main accel).
 
-Options that select code this slice has not ported raise
-NotImplementedError naming their ROADMAP item (`_check_supported`):
-``engine="masked"``, ``adaptive``, ``light_ris``,
-``sampler="sobol"``, ``HENJOU_POOL_SORT=1``, and the Denoise* and Debug
-render modes. Checkpoint/resume, multi-GPU and the hardware canary are
-not in this slice either.
+The denoiser runs on the renderer's device: the engine's numpy AOVs go up
+once per frame and the temporal history stays there between frames. A
+failing probe or canary raises; nothing falls back.
+
+Options that select code not ported yet raise NotImplementedError naming
+their ROADMAP Queue 1 item by title (`_check_supported`):
+``engine="masked"``, ``adaptive``, ``light_ris``, ``sampler="sobol"``
+and ``HENJOU_POOL_SORT=1``. Multi-GPU is not ported either.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from henjou_torch.integrator.payload import Sky
+from henjou_torch.integrator.wavefront import SAMPLERS_ITEM
 from henjou_torch.post.png import write_png
 from henjou_torch.post.srgb import float_to_srgb_u8
 from henjou_torch.runtime.camera import Camera, make_camera
@@ -44,6 +52,10 @@ from henjou_torch.scene.scenedata import (
 )
 
 log = logging.getLogger("henjou_torch")
+
+# the Denoise render modes, in which the firefly clamp's auto mode is on
+DENOISE_MODES = (RenderMode.DENOISE, RenderMode.DENOISE_UPSCALE2X,
+                 RenderMode.DENOISE_TEMPORAL)
 
 
 def resolve_device(device) -> torch.device:
@@ -89,6 +101,13 @@ class Renderer:
         self._accel_cache = None
         self._light_accel_cache = None
         self._est_spp_chunk = None
+        # DenoiseTemporal state: the previous output with its guides, the
+        # banked raw film (mean, variance, effective count, guides), the
+        # frame it belongs to and that frame's camera
+        self._temporal_history = None
+        self._temporal_raw = None
+        self._temporal_prev_frame = None
+        self._temporal_prev_cam = None
         # per-phase seconds of scene setup, and one entry per rendered frame
         self.setup_stats: dict = {}
         self.frame_stats: list = []
@@ -108,15 +127,12 @@ class Renderer:
         opt = self.option
         unsupported = [
             (opt.engine == "masked",
-             "engine='masked' (ROADMAP Queue 1 item 6)"),
-            (opt.adaptive, "adaptive sampling (ROADMAP Queue 1 item 7)"),
-            (opt.light_ris >= 2, "light_ris (ROADMAP Queue 1 item 7)"),
-            (opt.sampler == "sobol", "sampler='sobol' (ROADMAP Queue 1 item 7)"),
+             "engine='masked' (ROADMAP Queue 1, masked engine)"),
+            (opt.adaptive, f"adaptive sampling ({SAMPLERS_ITEM})"),
+            (opt.light_ris >= 2, f"light_ris ({SAMPLERS_ITEM})"),
+            (opt.sampler == "sobol", f"sampler='sobol' ({SAMPLERS_ITEM})"),
             (os.environ.get("HENJOU_POOL_SORT", "0") == "1",
-             "HENJOU_POOL_SORT=1 (ROADMAP Queue 1 item 7)"),
-            (opt.render_mode in (RenderMode.DENOISE, RenderMode.DENOISE_UPSCALE2X,
-                                 RenderMode.DENOISE_TEMPORAL, RenderMode.DEBUG),
-             f"render mode {opt.render_mode.value} (ROADMAP Queue 1 item 1)"),
+             f"HENJOU_POOL_SORT=1 ({SAMPLERS_ITEM})"),
         ]
         for bad, what in unsupported:
             if bad:
@@ -282,31 +298,61 @@ class Renderer:
             log.info("binned light intersector: %d emissive tris", n_lights)
         return make_binned_light_intersector(self._light_accel_cache[1])
 
-    def render_frame(self, frame: int, deadline: Optional[float] = None) -> dict:
+    def render_frame(self, frame: int, deadline: Optional[float] = None,
+                     checkpoint_path: Optional[str] = None) -> dict:
         """Render one frame; returns [H,W,*] numpy AOVs (color, albedo,
         normal, variance, count) plus 'spp_done', 'render_s', 'build_s' and
-        'n_traces'."""
+        'n_traces'. DenoiseUpScale2X renders at half the option's size.
+
+        With `checkpoint_path`, the accumulated film is saved after every
+        spp batch, and a checkpoint of the same frame and size found there
+        is resumed from."""
         self._check_supported()
         opt = self.option
         width, height = opt.image_width, opt.image_height
+        if opt.render_mode == RenderMode.DENOISE_UPSCALE2X:
+            width, height = width // 2, height // 2
+        n = width * height
         t0 = time.monotonic()
         frame_scene, accel, cam = self.frame_scene(frame)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         build_s = time.monotonic() - t0
+        resume = None
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            with np.load(checkpoint_path) as ck:
+                # another frame, size or format: ignored, the frame starts over
+                if (int(ck["frame"]) == frame and ck["color"].shape == (n, 3)
+                        and "m2" in ck and "cnt" in ck):
+                    spp_done = int(ck["spp_done"])
+                    resume = (ck["color"], ck["albedo"], ck["normal"], ck["m2"], ck["cnt"],
+                              spp_done)
+                    log.info("resumed frame %d at %d spp from %s", frame, spp_done,
+                             checkpoint_path)
         out = self._render_frame_wavefront(frame_scene, accel, cam, width, height,
-                                           frame, deadline=deadline)
+                                           frame, deadline=deadline,
+                                           checkpoint_path=checkpoint_path, resume=resume)
         out["build_s"] = build_s
         return out
 
+    def _firefly_clamp(self) -> float:
+        """The per-sample luminance cap: auto (-1) is 64.0 in the Denoise
+        render modes and off (0.0) in Default and Debug."""
+        clamp = self.option.firefly_clamp
+        if clamp < 0.0:
+            clamp = 64.0 if self.option.render_mode in DENOISE_MODES else 0.0
+        return clamp
+
     def _render_frame_wavefront(self, frame_scene, accel, cam, width, height,
-                                frame, deadline=None) -> dict:
+                                frame, deadline=None, checkpoint_path=None,
+                                resume=None) -> dict:
         """Wavefront execution over pixel chunks and spp batches, with a
         chunk-granular predictive deadline: before each chunk its cost is
         predicted from an average of measured per-spp chunk times, and the
         frame stops when it would not fit (partial batches stay unbiased,
         every pixel divides by its own count; the first batch always
-        completes)."""
+        completes). `resume` is (color, albedo, normal, m2, cnt, spp_done)
+        sums to continue from."""
         from henjou_torch.integrator.wavefront import wavefront_render
 
         opt = self.option
@@ -316,17 +362,20 @@ class Renderer:
         mis_single = integrator == "mis" and opt.mis_mode != "ref"
         n = width * height
         chunks = _pixel_chunks(n, self.FILM_CHUNK_PIXELS)
-        clamp = max(opt.firefly_clamp, 0.0)  # auto (-1) is off outside Denoise modes
+        clamp = self._firefly_clamp()
         intersect_fn, occluded_fn = self._accel_adapters(accel)
         light_isect_fn = (self.light_intersector(frame_scene)
                           if integrator == "mis" and not mis_single else None)
 
-        color = np.zeros((n, 3), np.float32)
-        albedo = np.zeros((n, 3), np.float32)
-        normal = np.zeros((n, 3), np.float32)
-        m2 = np.zeros((n,), np.float32)
-        cnt = np.zeros((n,), np.float32)
-        spp_done = 0
+        if resume is not None:
+            color, albedo, normal, m2, cnt, spp_done = resume
+        else:
+            color = np.zeros((n, 3), np.float32)
+            albedo = np.zeros((n, 3), np.float32)
+            normal = np.zeros((n, 3), np.float32)
+            m2 = np.zeros((n,), np.float32)
+            cnt = np.zeros((n,), np.float32)
+            spp_done = 0
         traces = 0
         batch = max(1, opt.spp_batch)
         t0 = time.monotonic()
@@ -373,6 +422,12 @@ class Renderer:
                 )
                 break
             spp_done += cur
+            if checkpoint_path:
+                # a temp file, then an atomic rename: a kill mid-write
+                # leaves the previous checkpoint whole
+                np.savez(checkpoint_path + ".tmp.npz", frame=frame, spp_done=spp_done,
+                         color=color, albedo=albedo, normal=normal, m2=m2, cnt=cnt)
+                os.replace(checkpoint_path + ".tmp.npz", checkpoint_path)
             if deadline is not None and time.monotonic() - t0 > deadline:
                 log.warning("frame %d: deadline hit at %d/%d spp", frame, spp_done, opt.max_spp)
                 break
@@ -397,13 +452,55 @@ class Renderer:
             "n_traces": traces,
         }
 
+    # ---------------- debug mode ----------------
+
+    def render_debug(self, frame: int) -> dict:
+        """Debug render mode: first-hit position, basecolor, normal and
+        texcoord AOV images of one jittered sample per pixel, traced by
+        brute force as the reference does."""
+        from henjou_torch.integrator.payload import closest_hit
+        from henjou_torch.runtime.camera import camera_rays
+        from henjou_torch.sampling.cmj import make_cmj_state
+
+        opt = self.option
+        width, height = opt.image_width, opt.image_height
+        time_s = frame / float(opt.fps)
+        xf, inv = self._frame_transforms(time_s)
+        frame_scene = build_frame_scene(
+            self.device_scene,
+            torch.as_tensor(xf, device=self.device),
+            torch.as_tensor(inv, device=self.device),
+        )
+        cam = self._frame_camera(time_s)
+        pix = torch.arange(width * height, dtype=torch.int64, device=self.device)
+        st = make_cmj_state(torch.zeros_like(pix), pix, opt.seed)
+        o, d, st = camera_rays(cam, width, height, pix, st)
+        hit = closest_hit(frame_scene, self.sky, o, d)
+        return {
+            "position": hit.position.reshape(height, width, 3).cpu().numpy(),
+            "basecolor": hit.basecolor.reshape(height, width, 3).cpu().numpy(),
+            "normal": hit.normal.reshape(height, width, 3).cpu().numpy(),
+            "texcoord": hit.texcoord.reshape(height, width, 2).cpu().numpy(),
+        }
+
     # ---------------- full run ----------------
 
     def initialize_and_render(self, option_path: Optional[str] = None) -> list:
-        """The entry point: load (if given a path), build, render every
-        frame inside the option's time budget and write one PNG per frame.
-        Returns the written paths."""
+        """The entry point: the hardware canary (on CUDA, unless
+        HENJOU_SKIP_CANARY=1), load (if given a path), build, then every
+        frame inside the option's time budget: render (checkpointed after
+        every spp batch), finalize in the configured mode and write one PNG
+        per frame (four per frame in Debug mode). Returns the written
+        paths."""
         overall_t0 = time.monotonic()
+        if self.device.type == "cuda" and os.environ.get("HENJOU_SKIP_CANARY", "0") != "1":
+            # known-answer render through the kernels before the budget is
+            # spent; raises when the film is off
+            from henjou_torch.runtime.canary import canary_check
+
+            res = canary_check(self.device, strict=True)
+            self.setup_stats["canary_rmse"] = res["rmse"]
+            self.setup_stats["canary_s"] = time.monotonic() - overall_t0
         if option_path:
             self.load_render_option(option_path)
             self._load_scene_from_option()
@@ -415,20 +512,39 @@ class Renderer:
         stamp = time.strftime("%Y%m%d-%H%M%S") + "_" if opt.use_date else ""
 
         written = []
-        # measured non-render overhead of the previous frame, reserved off
-        # every later frame's deadline so the whole animation fits
+        # measured non-render overhead of the previous frame (finalize and
+        # PNG included), reserved off every later frame's deadline so the
+        # whole animation fits
         overhead_est = 0.0
         for frame in range(opt.start_frame, opt.end_frame):
             t0 = time.monotonic()
+            if opt.render_mode == RenderMode.DEBUG:
+                dbg = self.render_debug(frame)
+                for key in ("position", "basecolor", "normal", "texcoord"):
+                    img = dbg[key]
+                    if img.shape[-1] == 2:
+                        img = np.concatenate([img, np.zeros_like(img[..., :1])], -1)
+                    u8 = float_to_srgb_u8(torch.as_tensor(np.abs(img))).numpy()
+                    path = os.path.join(opt.image_directory,
+                                        f"{stamp}{opt.image_name}_{key}_{frame:03d}.png")
+                    write_png(path, u8)
+                    written.append(path)
+                continue
             remaining = budget_s - (t0 - overall_t0)
             frames_left = max(opt.end_frame - frame, 1)
+            out_dir = os.path.join(opt.image_directory, os.path.dirname(opt.image_name))
+            ckpt = os.path.join(out_dir,
+                                f".{os.path.basename(opt.image_name)}_{frame:03d}.ckpt.npz")
             deadline = max((remaining - overhead_est * frames_left) / frames_left, 1.0)
             if frame == opt.start_frame and budget_s < float("inf"):
                 # the first frame's overhead is unknown: under-allocate it
                 deadline *= 0.6
-            aovs = self.render_frame(frame, deadline=deadline)
+            aovs = self.render_frame(frame, deadline=deadline, checkpoint_path=ckpt)
+            if os.path.exists(ckpt):
+                os.remove(ckpt)  # frame complete
             t_fin = time.monotonic()
             img = self._finalize(aovs, frame=frame)
+            finalize_s = time.monotonic() - t_fin
             u8 = float_to_srgb_u8(torch.as_tensor(img)).numpy()
             name = f"{stamp}{opt.image_name}_{frame:03d}.png"
             path = os.path.join(opt.image_directory, name)
@@ -439,26 +555,143 @@ class Renderer:
             self.frame_stats.append(dict(
                 frame=frame, spp=aovs["spp_done"], render_s=aovs["render_s"],
                 build_s=aovs["build_s"], n_traces=aovs["n_traces"],
-                finalize_png_s=time.monotonic() - t_fin, total_s=frame_total,
-                path=path, film_finite=bool(np.isfinite(aovs["color"]).all()),
+                finalize_s=finalize_s, finalize_png_s=time.monotonic() - t_fin,
+                total_s=frame_total, path=path, film_shape=list(aovs["color"].shape[:2]),
+                film_finite=bool(np.isfinite(aovs["color"]).all()),
                 film_mean=float(aovs["color"].mean()),
+                image_finite=bool(np.isfinite(img).all()),
             ))
             log.info(
-                "frame %d: %d spp in %.2fs (render %.2fs, overhead %.2fs) -> %s",
-                frame, aovs["spp_done"], frame_total, aovs["render_s"], overhead_est, path,
+                "frame %d: %d spp in %.2fs (render %.2fs, finalize %.2fs, overhead %.2fs) -> %s",
+                frame, aovs["spp_done"], frame_total, aovs["render_s"], finalize_s,
+                overhead_est, path,
             )
         log.info("animation done: %.2fs / budget %.2fs", time.monotonic() - overall_t0, budget_s)
         return written
 
+    # ---------------- finalize (denoiser and probes) ----------------
+
     def _finalize(self, aovs: dict, frame: int = None) -> np.ndarray:
-        """Default mode: the raw colour AOV (the denoiser's passthrough).
-        The Denoise* modes are rejected by `_check_supported` before a
-        frame renders."""
-        if self.option.render_mode != RenderMode.DEFAULT:
-            raise NotImplementedError(
-                f"render mode {self.option.render_mode.value}: ROADMAP Queue 1 item 1"
-            )
-        return aovs["color"]
+        """The displayed [H,W,3] image of a frame's AOVs. Default: the raw
+        colour AOV. Denoise: the spatial filter. DenoiseUpScale2X: the
+        spatial filter, then the 2x upscale guided by a full-resolution
+        first-hit probe. DenoiseTemporal: temporal accumulation or
+        reprojection against the previous frame, restarting spatially
+        when the frame does not follow it. Debug: the albedo AOV."""
+        mode = self.option.render_mode
+        if mode == RenderMode.DEBUG:
+            return aovs["albedo"]
+        if mode not in DENOISE_MODES:
+            return aovs["color"]
+        from henjou_torch.post import denoise as dn
+
+        # the AOVs go up to the device once per frame
+        dev = {k: (torch.as_tensor(aovs[k], dtype=torch.float32, device=self.device)
+                   if aovs.get(k) is not None else None)
+               for k in ("color", "albedo", "normal", "variance", "count")}
+        if mode == RenderMode.DENOISE_TEMPORAL:
+            return self._finalize_temporal(dev, frame).cpu().numpy()
+        out = self._spatial_denoise(dev)
+        if mode == RenderMode.DENOISE_UPSCALE2X:
+            guides = self._full_res_guides(frame)
+            if guides is not None:
+                out = dn.upscale2x_guided(out, dev["albedo"], dev["normal"], *guides)
+            else:
+                out = dn.upscale2x(out)
+        return out.cpu().numpy()
+
+    def _finalize_temporal(self, dev: dict, frame):
+        """DenoiseTemporal on the device tensors `dev`. History is used only
+        for the frame right after the previous one, at the same size. With
+        the depth probe's reprojection and the wavefront film's variance and
+        counts it merges the warped raw history into the film before the
+        spatial filter (`temporal_accumulate`); without a banked raw film it
+        blends the reprojected previous output
+        (`denoise_temporal_reprojected`); without a reprojection, the
+        unwarped previous output (`denoise_temporal`)."""
+        from henjou_torch.post import denoise as dn
+
+        color, albedo, normal = dev["color"], dev["albedo"], dev["normal"]
+        prev = self._temporal_history
+        prev_frame = self._temporal_prev_frame
+        # an unknown frame index cannot prove adjacency: restart spatially
+        sequential = frame is not None and prev_frame is not None and frame == prev_frame + 1
+        cam = pos = hitm = None
+        if frame is not None and self.device_scene is not None:
+            # the depth probe for motion-compensated history, also on the
+            # first frame so its camera is banked for the next
+            t0 = time.monotonic()
+            frame_scene, accel, cam = self.frame_scene(frame)
+            pos, hitm = _temporal_depth_probe(frame_scene, self.sky, cam, accel,
+                                              color.shape[1], color.shape[0])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            log.info("temporal depth probe: %.3fs (%dx%d)", time.monotonic() - t0,
+                     color.shape[1], color.shape[0])
+        prev_cam = self._temporal_prev_cam
+        # pre-filter accumulation state: (raw mean, variance of the mean,
+        # effective count, albedo, normal)
+        raw_hist = self._temporal_raw
+        variance, cnt = dev["variance"], dev["count"]
+        have_film = variance is not None and cnt is not None
+        new_raw = None
+        if prev is None or prev[0].shape != color.shape or not sequential:
+            out = self._spatial_denoise(dev)
+        elif cam is not None and prev_cam is not None and pos is not None:
+            from henjou_torch.runtime.camera import project_to_pixel
+
+            h, w = color.shape[0], color.shape[1]
+            px, py, infront = project_to_pixel(prev_cam, pos.reshape(-1, 3), w, h)
+            px = px.reshape(h, w)
+            py = py.reshape(h, w)
+            valid = infront.reshape(h, w) & hitm
+            if have_film and raw_hist is not None and raw_hist[0].shape == color.shape:
+                merged, var_m, n_eff = dn.temporal_accumulate(
+                    color, variance, cnt, albedo, normal, *raw_hist, px, py, valid)
+                out = self._spatial_denoise(dict(dev, color=merged, variance=var_m))
+                new_raw = (merged, var_m, n_eff, albedo, normal)
+            else:
+                out = dn.denoise_temporal_reprojected(
+                    color, albedo, normal, *prev, px, py, valid,
+                    spatial=self._spatial_denoise(dev))
+        else:
+            out = dn.denoise_temporal(color, albedo, normal, *prev,
+                                      spatial=self._spatial_denoise(dev))
+        if new_raw is None and have_film:
+            new_raw = (color, variance, cnt, albedo, normal)
+        self._temporal_raw = new_raw
+        self._temporal_history = (out, albedo, normal)
+        self._temporal_prev_frame = frame
+        self._temporal_prev_cam = cam
+        return out
+
+    def _spatial_denoise(self, dev: dict):
+        """The spatial pass on the device tensors `dev`: variance-guided
+        (SVGF) à-trous when the film has the variance AOV (always, from the
+        wavefront engine), fixed-sigma à-trous otherwise."""
+        from henjou_torch.post.denoise import denoise_atrous, denoise_atrous_var
+
+        if dev.get("variance") is not None:
+            return denoise_atrous_var(dev["color"], dev["albedo"], dev["normal"],
+                                      dev["variance"])
+        return denoise_atrous(dev["color"], dev["albedo"], dev["normal"])
+
+    def _full_res_guides(self, frame: int = None):
+        """(albedo[H,W,3], normal[H,W,3]) of a pixel-centre first-hit probe
+        at the output size, the guides of the 2x upsample; None without a
+        device scene (the caller then upscales bilinearly)."""
+        if self.device_scene is None:
+            return None
+        t0 = time.monotonic()
+        frame_scene, accel, cam = self.frame_scene(frame or 0)
+        opt = self.option
+        alb, nrm = _guide_probe(frame_scene, self.sky, cam, accel, opt.image_width,
+                                opt.image_height)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        log.info("upscale guide probe: %.3fs (%dx%d)", time.monotonic() - t0,
+                 opt.image_width, opt.image_height)
+        return alb, nrm
 
     def _load_scene_from_option(self):
         opt = self.option
@@ -470,9 +703,63 @@ class Renderer:
             self.set_scene(load_gltf(path))
         elif path.lower().endswith(".obj"):
             raise NotImplementedError(
-                "OBJ scenes are not ported yet (scene/obj.py): ROADMAP Queue 1 item 3"
+                "OBJ scenes are not ported yet (scene/obj.py): "
+                "ROADMAP Queue 1, OBJ loader and the C fast paths"
             )
         else:
             raise ValueError(f"unsupported scene file: {path}")
         self.setup_stats["load_s"] = time.monotonic() - t0
         self.build()
+
+
+PROBE_CHUNK = 1 << 16
+
+
+def _chunked_closest_hit(frame_scene, sky, o, d, intersect_fn, chunk: int = PROBE_CHUNK):
+    """closest_hit over [R,3] rays in chunks of `chunk` rays, the engine's
+    launch shape: the last chunk is padded (origin 0, direction +y) and
+    the padding stripped. Returns a SurfaceHit with [R] leaves."""
+    from henjou_torch.integrator.payload import SurfaceHit, closest_hit
+
+    r = o.shape[0]
+    if r <= chunk:
+        return closest_hit(frame_scene, sky, o, d, intersect_fn=intersect_fn)
+    pad = (-r) % chunk
+    if pad:
+        o = torch.cat([o, torch.zeros((pad, 3), dtype=o.dtype, device=o.device)])
+        d = torch.cat([d, torch.tensor([[0.0, 1.0, 0.0]], dtype=d.dtype,
+                                       device=d.device).expand(pad, 3)])
+    parts = [closest_hit(frame_scene, sky, o[b:b + chunk], d[b:b + chunk],
+                         intersect_fn=intersect_fn)
+             for b in range(0, o.shape[0], chunk)]
+    return SurfaceHit(*(torch.cat(leaves)[:r] for leaves in zip(*parts)))
+
+
+def _probe_hit(frame_scene, sky, cam, accel, width, height):
+    """Pixel-centre first hits of a width x height frame: the raw binned
+    intersector (pixel-centre rays are already coherent, so no sort), or
+    brute force without an accel."""
+    from henjou_torch.runtime.camera import camera_rays_centers
+
+    ifn = None
+    if accel is not None:
+        from henjou_torch.accel.pallas_binned import make_binned_intersector
+
+        ifn, _ = make_binned_intersector(accel)
+    o, d = camera_rays_centers(cam, width, height)
+    return _chunked_closest_hit(frame_scene, sky, o, d, ifn)
+
+
+def _guide_probe(frame_scene, sky, cam, accel, width, height):
+    """First-hit (albedo[H,W,3], normal[H,W,3]) at the full output size:
+    the guides of `upscale2x_guided`, in the domain of the engine's
+    first-bounce AOVs."""
+    hit = _probe_hit(frame_scene, sky, cam, accel, width, height)
+    return hit.basecolor.reshape(height, width, 3), hit.normal.reshape(height, width, 3)
+
+
+def _temporal_depth_probe(frame_scene, sky, cam, accel, width, height):
+    """First-hit world positions for temporal reprojection: ([H,W,3]
+    position, [H,W] hit mask)."""
+    hit = _probe_hit(frame_scene, sky, cam, accel, width, height)
+    return hit.position.reshape(height, width, 3), hit.is_hit.reshape(height, width)

@@ -12,7 +12,8 @@ splits one factor into 16-bit halves and keeps every partial product
 below 2^48: the result is exact without relying on signed wraparound.
 
 Only the CMJ sampler is ported; the Owen-scrambled Sobol sampler
-(``sampler="sobol"``) is ROADMAP Queue 1 item 7; the renderer raises for it.
+(``sampler="sobol"``) is ROADMAP Queue 1, opt-in samplers and
+allocation; the renderer raises for it.
 """
 
 from __future__ import annotations

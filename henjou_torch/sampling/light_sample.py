@@ -18,7 +18,8 @@ Moller-Trumbore against the emissive triangles in chunks of LIGHT_CHUNK,
 and `make_binned_light_intersector` with the binned intersector
 (``csrc/binned.cu`` on CUDA tensors) over the emissive subset, which the
 renderer takes above 512 emissive triangles. Resampled light selection
-(RIS, ``light_ris``) is not ported (ROADMAP Queue 1 item 7).
+(RIS, ``light_ris``) is not ported (ROADMAP Queue 1, opt-in samplers and
+allocation).
 """
 
 from __future__ import annotations

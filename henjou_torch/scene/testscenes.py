@@ -1,8 +1,8 @@
 """Built-in validation scenes (port of henjou_tpu/scene/testscenes.py).
 
-Only the two scenes this slice uses are ported: `cornell_box_scene` (the
-CLI's no-argument run) and `sphere_gallery_scene`. Host numpy code,
-copied.
+Only the scenes the port uses are ported: `cornell_box_scene` (the CLI's
+no-argument run), `sphere_gallery_scene` and `rtcamp_scene` (the quality
+row, henjou_torch/tools/quality.py). Host numpy code, copied.
 """
 
 from __future__ import annotations
@@ -178,6 +178,142 @@ def sphere_gallery_scene() -> SceneData:
         material_ids=np.asarray(mat_ids, np.uint32),
         normals=norms,
         texcoords=None,
+        colors=None,
+        materials=mats,
+    )
+
+
+def rtcamp_scene(grid: int = 8, lat: int = 32, lon: int = 64) -> SceneData:
+    """BASELINE config #5: the contest-class scene — an exhibition hall of
+    grid x grid pedestals each carrying a high-tessellation sphere, with
+    every headline material in play (thin-film, minus-IOR meta-glass,
+    multiple-scattering metal, Disney dielectrics), a CHECKERED textured
+    floor, and an array of emissive ceiling panels (mesh lights).
+    grid=8, lat=32, lon=64 -> ~256k triangles. The camera is animated by
+    the caller (make_scenes emits an orbit; renderer.h:1149-1169 path).
+
+    Texcoords: floor maps world xz -> [0,8] tiling; everything else 0."""
+    # texture 0 = checkerboard (attached by make_scenes / caller via
+    # scene.textures; base_color_tex=0)
+    mats = [
+        make_material(
+            "floor", base_color=(1.0, 1.0, 1.0), roughness=0.4,
+            base_color_tex=0,
+        ),
+        make_material("pedestal", base_color=(0.25, 0.25, 0.28), roughness=0.6),
+        make_material("light", emission=(16.0, 15.2, 13.6), is_light=True),
+    ]
+    kinds = []
+    rng = np.random.default_rng(9)
+    for k in range(grid * grid):
+        kind = k % 4
+        kinds.append(kind)
+        if kind == 0:  # Disney dielectric, varied hue/roughness
+            hue = rng.uniform(0, 1, 3) * 0.6 + 0.2
+            mats.append(
+                make_material(
+                    f"disney{k}", base_color=tuple(hue),
+                    roughness=float(rng.uniform(0.1, 0.7)),
+                )
+            )
+        elif kind == 1:  # multiple-scattering metal
+            mats.append(
+                make_material(
+                    f"metal{k}",
+                    base_color=(0.95, 0.78, 0.4) if k % 8 < 4 else (0.8, 0.8, 0.85),
+                    roughness=float(rng.uniform(0.15, 0.5)),
+                    metallic=1.0,
+                )
+            )
+        elif kind == 2:  # minus-IOR meta-glass (headline #2, BSDFs.h:453-455)
+            mats.append(
+                make_material(
+                    f"metaglass{k}", base_color=(1.0, 1.0, 1.0),
+                    roughness=0.0, ior=1.5, transmission=1.0,
+                    ideal_specular=True,
+                )
+            )
+        else:  # thin-film (headline #1, disneyBRDF.h:213-218)
+            mats.append(
+                make_material(
+                    f"film{k}",
+                    base_color=(float(rng.uniform(0.1, 0.9)), 0.3, 0.3),
+                    roughness=0.1,
+                    is_thinfilm=True,
+                )
+            )
+
+    verts_all, norms_all, tc_all, mat_ids = [], [], [], []
+
+    def add_tris(v, n, mid, tc=None):
+        verts_all.append(v)
+        norms_all.append(n)
+        tc_all.append(
+            tc if tc is not None else np.zeros((len(v), 2), np.float32)
+        )
+        mat_ids.extend([mid] * (len(v) // 3))
+
+    half = grid * 1.6
+    floor = _quad(
+        [-half, 0.0, -half], [-half, 0.0, half], [half, 0.0, half], [half, 0.0, -half]
+    )
+    fv = np.asarray(floor, np.float32)
+    fn = np.tile(np.asarray([[0.0, 1.0, 0.0]], np.float32), (len(fv), 1))
+    ftc = (fv[:, [0, 2]] / (2 * half) + 0.5) * 8.0  # 8x8 checker tiling
+    add_tris(fv, fn, 0, ftc.astype(np.float32))
+
+    def add_box(center, size, mid):
+        cx, cy, cz = center
+        sx, sy, sz = size
+        lo = np.asarray([cx - sx, cy - sy, cz - sz], np.float32)
+        hi = np.asarray([cx + sx, cy + sy, cz + sz], np.float32)
+        faces = [
+            ([lo[0], lo[1], lo[2]], [lo[0], hi[1], lo[2]], [hi[0], hi[1], lo[2]], [hi[0], lo[1], lo[2]], [0, 0, -1]),
+            ([lo[0], lo[1], hi[2]], [hi[0], lo[1], hi[2]], [hi[0], hi[1], hi[2]], [lo[0], hi[1], hi[2]], [0, 0, 1]),
+            ([lo[0], lo[1], lo[2]], [lo[0], lo[1], hi[2]], [lo[0], hi[1], hi[2]], [lo[0], hi[1], lo[2]], [-1, 0, 0]),
+            ([hi[0], lo[1], lo[2]], [hi[0], hi[1], lo[2]], [hi[0], hi[1], hi[2]], [hi[0], lo[1], hi[2]], [1, 0, 0]),
+            ([lo[0], hi[1], lo[2]], [lo[0], hi[1], hi[2]], [hi[0], hi[1], hi[2]], [hi[0], hi[1], lo[2]], [0, 1, 0]),
+            ([lo[0], lo[1], lo[2]], [hi[0], lo[1], lo[2]], [hi[0], lo[1], hi[2]], [lo[0], lo[1], hi[2]], [0, -1, 0]),
+        ]
+        for p0, p1, p2, p3, nrm in faces:
+            q = np.asarray(_quad(p0, p1, p2, p3), np.float32)
+            qn = np.tile(np.asarray([nrm], np.float32), (len(q), 1))
+            add_tris(q, qn, mid)
+
+    spacing = 2 * half / grid
+    for gy in range(grid):
+        for gx in range(grid):
+            k = gy * grid + gx
+            cx = -half + (gx + 0.5) * spacing
+            cz = -half + (gy + 0.5) * spacing
+            add_box((cx, 0.3, cz), (0.45, 0.3, 0.45), 1)
+            v, n = _uv_sphere((cx, 1.05, cz), 0.42, lat=lat, lon=lon)
+            add_tris(v, n, 3 + k)
+
+    # ceiling light panels (mesh lights: many emissive tris)
+    y = 7.0
+    for lx in range(3):
+        for lz in range(3):
+            cx = (lx - 1) * half * 0.6
+            cz = (lz - 1) * half * 0.6
+            l = half * 0.12
+            lv = np.asarray(
+                _quad([cx - l, y, cz - l], [cx + l, y, cz - l],
+                      [cx + l, y, cz + l], [cx - l, y, cz + l]),
+                np.float32,
+            )
+            ln = np.tile(np.asarray([[0.0, -1.0, 0.0]], np.float32), (len(lv), 1))
+            add_tris(lv, ln, 2)
+
+    verts = np.concatenate(verts_all)
+    norms = np.concatenate(norms_all)
+    tcs = np.concatenate(tc_all)
+    return SceneData(
+        vertices=verts,
+        indices=np.arange(len(verts), dtype=np.uint32),
+        material_ids=np.asarray(mat_ids, np.uint32),
+        normals=norms,
+        texcoords=tcs,
         colors=None,
         materials=mats,
     )

@@ -11,7 +11,6 @@ import torch
 
 from henjou_torch import render
 from henjou_torch.post.png import read_png
-from henjou_torch.runtime.options import RenderMode
 from henjou_torch.runtime.renderer import Renderer
 
 # one intra-op thread: the test lane runs several pytest workers at once
@@ -70,9 +69,6 @@ def test_cuda_device_without_cuda_raises():
 @pytest.mark.parametrize(
     "override",
     [
-        dict(render_mode=RenderMode.DENOISE_TEMPORAL),
-        dict(render_mode=RenderMode.DENOISE),
-        dict(render_mode=RenderMode.DEBUG),
         dict(engine="masked"),
         dict(adaptive=True),
         dict(sampler="sobol"),
@@ -138,7 +134,7 @@ def test_masked_engine_still_raises(monkeypatch):
     r.load_render_option(GALLERY)
     r.option = dataclasses.replace(r.option, engine="masked", mis_mode="ref")
     r._load_scene_from_option()
-    with pytest.raises(NotImplementedError, match="engine='masked' \\(ROADMAP Queue 1 item 6\\)"):
+    with pytest.raises(NotImplementedError, match="engine='masked' \\(ROADMAP Queue 1, masked engine\\)"):
         r.render_frame(0)
 
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions, on the card: 82 cases,
-32 of them the cluster walk of the binned and two-level kernels.
+"""The CUDA kernels against their plain versions, on the card: 89 cases,
+32 of them the cluster walk of the binned and two-level kernels, 7 the
+denoiser's tensor ops on CUDA against the CPU.
 
 These need an NVIDIA GPU and nvcc; without them they skip. The tests
 directory's conftest imports jax, which the GPU machine may not have, so
@@ -295,3 +296,70 @@ def test_roll_pass_kernel_matches_plain(net_state, per_plane):
     torch.cuda.synchronize()
     assert bn.LAUNCHES["roll_pass"] == before + 1
     assert torch.equal(out, bn.roll_pass_plain(net_state))
+
+
+# ---------------- the denoiser: CUDA tensors against CPU tensors ----------------
+
+
+def _denoise_inputs(h=72, w=128, seed=21):
+    """AOVs of order 1 (some zero albedo for the demodulation guard, unit
+    normals in patches), variance, counts, a history close to the current
+    frame, and a reprojection near the identity with fractional parts in
+    [0.05, 0.95]: numpy arrays."""
+    rng = np.random.default_rng(seed)
+    color = rng.random((h, w, 3), dtype=np.float32) * 1.5
+    albedo = rng.random((h, w, 3), dtype=np.float32)
+    albedo[rng.random((h, w)) < 0.1] = 0.0
+    n = np.repeat(np.repeat(rng.normal(size=(h // 4 + 1, w // 4 + 1, 3)), 4, 0), 4, 1)[:h, :w]
+    normal = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+    variance = rng.random((h, w), dtype=np.float32) * 0.02
+    count = rng.integers(1, 9, (h, w)).astype(np.float32)
+    iy, ix = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    px = (ix + rng.integers(-1, 2, (h, w)) + rng.uniform(0.05, 0.95, (h, w))).astype(np.float32)
+    py = (iy + rng.integers(-1, 2, (h, w)) + rng.uniform(0.05, 0.95, (h, w))).astype(np.float32)
+    valid = rng.random((h, w)) > 0.1
+    hist = (color + 0.1 * (rng.random((h, w, 3), dtype=np.float32) - 0.5)).astype(np.float32)
+    return dict(color=color, albedo=albedo, normal=normal, variance=variance, count=count,
+                hist=hist, px=px, py=py, valid=valid)
+
+
+def _denoise_call(name, x):
+    """(function, positional args) of one denoiser function on the dict of
+    tensors `x`; the 2x upscalers take the frame as the half-size input."""
+    from henjou_torch.post import denoise as dn
+
+    c, a, nrm = x["color"], x["albedo"], x["normal"]
+    return {
+        "denoise_atrous": (dn.denoise_atrous, (c, a, nrm)),
+        "denoise_atrous_var": (dn.denoise_atrous_var, (c, a, nrm, x["variance"])),
+        "denoise_temporal": (dn.denoise_temporal, (c, a, nrm, x["hist"], a, nrm)),
+        "denoise_temporal_reprojected": (dn.denoise_temporal_reprojected,
+                                         (c, a, nrm, x["hist"], a, nrm, x["px"], x["py"],
+                                          x["valid"])),
+        "temporal_accumulate": (dn.temporal_accumulate,
+                                (c, x["variance"], x["count"], a, nrm, x["hist"],
+                                 x["variance"], 3.0 * x["count"], a, nrm, x["px"], x["py"],
+                                 x["valid"])),
+        "upscale2x_guided": (dn.upscale2x_guided,
+                             (c, a, nrm, dn.upscale2x(a), dn.upscale2x(nrm))),
+        "upscale2x": (dn.upscale2x, (c,)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["denoise_atrous", "denoise_atrous_var", "denoise_temporal",
+                                  "denoise_temporal_reprojected", "temporal_accumulate",
+                                  "upscale2x_guided", "upscale2x"])
+def test_denoiser_on_cuda_matches_cpu(cuda, name):
+    """The same tensor ops on the card and on the CPU, at the CPU parity
+    tests' limit: rtol 1e-4, atol 1e-5."""
+    arrays = _denoise_inputs()
+    on = {dev: {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+          for dev in ("cpu", cuda)}
+    fn, args = _denoise_call(name, on[cuda])
+    got = fn(*args)
+    fn, args = _denoise_call(name, on["cpu"])
+    want = fn(*args)
+    got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4, atol=1e-5)
