@@ -23,11 +23,14 @@ prints no result. Phases, each of which raises on failure:
    ``csrc/cluster_walk.cuh``), and within the general limits: t within a
    relative 1e-5 where both hit, hit flips at most 1e-4 of the rays, prim
    equal except where the other triangle is hit at the same t, and u, v
-   within 1e-6 where both hit the same triangle;
+   within 1e-6 where both hit the same triangle; and the kernel's results
+   on the sorted rays, put back in drawn order, bit-equal to its results on
+   the rays as drawn (a ray's result does not depend on the other rays);
 5. the three cluster intersectors (flat scan ``cluster.cu``, two-level
-   ``cluster_hbm.cu``, matrix form ``mxu.cu``) against their plain
-   versions on the same scenes, with the limits of phase 4; the two-level
-   kernel, the other walk kernel, bit-equal and on both orders;
+   ``cluster_hbm.cu``, matrix form ``mxu.cu``, each an entry point over
+   the same walk) against their plain versions on the same scenes, as
+   phase 4: bit-equal and within its limits, on both orders, with the
+   same order check;
 6. the wavefront engine on the gallery at 64x36, 4 spp, 4096 lanes, once
    with the kernels and once with the plain versions passed explicitly:
    per-pixel RMSE of the mean colour at most 5e-3 (atomic film sums and a
@@ -96,7 +99,7 @@ the flat and matrix kernels' of phase 7, and the network kernels' of
 phase 13 (its tools' rows are that path). The line before the last is the
 card's name and power limit; before that, one JSON line with each
 kernel's launches, error against its plain version, times (`ms` on the
-unsorted rays; for the two walk kernels also `sorted_ms` on the sorted
+unsorted rays; for the four walk kernels also `sorted_ms` on the sorted
 ones), the bound
 (the least time the card could take for the same work: bytes moved at
 3.35 TB/s against operations at 67 TFLOP/s f32, whichever is larger; an
@@ -132,9 +135,6 @@ GALLERY_SIZE = (512, 288)  # the gallery option file's width and height
 # tests/test_torch_accel.py's binned-vs-brute-force limit
 TOL_T_REL_FORMULAS = 1e-4
 CLUSTER_KERNELS = ("cluster", "cluster_hbm", "mxu")
-# the kernels over csrc/cluster_walk.cuh: bit-equal to their plain
-# versions, on the main path's ray order too
-WALK_KERNELS = ("binned", "cluster_hbm")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -268,10 +268,23 @@ def phase_sort(dev, results):
 
 
 def _bit_equal(name, k, p):
-    """The redesigned walk kernels equal their plain versions to the bit."""
+    """The walk kernels (every intersector, csrc/cluster_walk.cuh) equal
+    their plain versions to the bit."""
     for field, a, b in zip(("t", "prim", "u", "v", "hit"), k, p):
         if not torch.equal(a, b):
             raise AssertionError(f"[{name}] {field} differs from the plain version")
+
+
+def _same_back(name, unsorted, on_sorted, src):
+    """A walk kernel's results `on_sorted` on the sorted rays, put back at
+    their rows `src` of the rays as drawn, equal its results `unsorted`
+    there to the bit."""
+    for field, a, b in zip(("t", "prim", "u", "v", "hit"), unsorted, on_sorted):
+        back = torch.empty_like(b)
+        back[src.long()] = b
+        if not torch.equal(a, back):
+            raise AssertionError(f"[{name}] {field} on the sorted rays differs from the rays "
+                                 "as drawn")
 
 
 def _check_intersections(name, tri_verts, o, d, k, p, any_hit):
@@ -315,9 +328,10 @@ def _check_intersections(name, tri_verts, o, d, k, p, any_hit):
 
 def _trace_vs_plain(name, mod, kind, fn, plain, packed, tri_verts, o, d, any_hit, reps):
     """One trace of the kernel wrapper `fn` against its plain version on
-    rays o, d (tmin 1e-3): the redesigned walk kernels bit-equal, every
-    kernel within phase 4's limits; then the kernel timed over `reps`
-    calls. Returns (max error, kernel ms, plain ms, bound ms, bound by)."""
+    rays o, d (tmin 1e-3): the walk kernels bit-equal, every kernel within
+    phase 4's limits; then the kernel timed over `reps` calls. Returns
+    (the kernel's result, (max error, kernel ms, plain ms, bound ms,
+    bound by))."""
     k = fn(packed, o, d, 1e-3, any_hit=any_hit)
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -328,15 +342,14 @@ def _trace_vs_plain(name, mod, kind, fn, plain, packed, tri_verts, o, d, any_hit
     torch.cuda.synchronize()
     plain_ms = e0.elapsed_time(e1)
     visits = mod.VISITS
-    if kind in WALK_KERNELS:
-        _bit_equal(name, k, p)
+    _bit_equal(name, k, p)
     err = _check_intersections(name, tri_verts, o, d, k, p, any_hit)
     ms = cuda_ms(lambda: fn(packed, o, d, 1e-3, any_hit=any_hit), reps)
     bnd = intersect_bound(packed, o.shape[0], visits, kind)
     log(f"[{name}] {packed.num_clusters} clusters: kernel {ms:.4f} ms/trace, "
         f"plain {plain_ms:.4f} ms/trace, {visits} (ray, cluster) visits, "
         f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-    return err, ms, plain_ms, *bnd
+    return k, (err, ms, plain_ms, *bnd)
 
 
 def _record(results, kind, key, err, *times):
@@ -369,14 +382,28 @@ def phase_intersect(dev, results):
         r._load_scene_from_option()
         fs, accel, cam = r.frame_scene(0)
         log(f"[intersect {label}] {accel.num_clusters} clusters, group {accel.group}")
-        for order, (o, d) in ray_orders(accel, *test_rays(r, accel, cam, dev, rng)).items():
-            for any_hit in (False, True):
-                hit = "any" if any_hit else "closest"
-                out = _trace_vs_plain(f"intersect {label} {hit} {order}", pb, "binned",
-                                      pb.intersect_binned, pb.intersect_binned_plain, accel,
-                                      fs.tri_verts, o, d, any_hit, 20)
-                _record(results, "binned", f"{label}_{hit}_{order}", *out)
+        orders = ray_orders(accel, *test_rays(r, accel, cam, dev, rng))
+        _both_orders(results, "binned", label, pb, pb.intersect_binned,
+                     pb.intersect_binned_plain, accel, fs.tri_verts, orders, 20)
     _finish_times(results["binned"])
+
+
+def _both_orders(results, kind, label, mod, fn, plain, packed, tri_verts, orders, reps):
+    """`_trace_vs_plain` of a walk kernel on the rays as drawn and sorted,
+    closest and any hit, each sorted result also held against the drawn
+    one (`_same_back`)."""
+    drawn = {}
+    for order, (o, d, src) in orders.items():
+        for any_hit in (False, True):
+            hit = "any" if any_hit else "closest"
+            k, out = _trace_vs_plain(f"{kind} {label} {hit} {order}", mod, kind, fn, plain,
+                                     packed, tri_verts, o, d, any_hit, reps)
+            if order == "unsorted":
+                drawn[hit] = k
+            else:
+                _same_back(f"{kind} {label} {hit}", drawn[hit], k, src)
+            _record(results, kind, f"{label}_{hit}_{order}", *out)
+    log(f"[{kind} {label}] the sorted rays' results, put back, equal the drawn rays'")
 
 
 def _cluster_kernel(kind):
@@ -400,8 +427,8 @@ def _cluster_kernel(kind):
 
 def phase_cluster_intersect(dev, results):
     """Kernels 3-5 against their plain versions, closest and any hit, on
-    the gallery and contest frame 0 (phase 4's rays and limits; the
-    two-level kernel also on the sorted rays)."""
+    the gallery and contest frame 0, on the test rays unsorted and sorted
+    (phase 4's rays and checks)."""
     from henjou_torch.runtime.renderer import Renderer
     from henjou_torch.tools.time_intersectors import ray_orders, test_rays
 
@@ -418,14 +445,7 @@ def phase_cluster_intersect(dev, results):
             packed = build(fs)
             torch.cuda.synchronize()
             log(f"[{kind} {label}] pack {time.monotonic() - t0:.2f} s")
-            for order, (o, d) in orders.items():
-                if order == "sorted" and kind not in WALK_KERNELS:
-                    continue
-                for any_hit in (False, True):
-                    hit = "any" if any_hit else "closest"
-                    out = _trace_vs_plain(f"{kind} {label} {hit} {order}", mod, kind, fn, plain,
-                                          packed, fs.tri_verts, o, d, any_hit, 10)
-                    _record(results, kind, f"{label}_{hit}_{order}", *out)
+            _both_orders(results, kind, label, mod, fn, plain, packed, fs.tri_verts, orders, 10)
     for kind in CLUSTER_KERNELS:
         _finish_times(results[kind])
 

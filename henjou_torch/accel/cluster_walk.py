@@ -1,15 +1,19 @@
 """Plain-torch model of the cluster walk of ``csrc/cluster_walk.cuh``.
 
-The binned and two-level kernels walk each ray on RAY_LANES lanes: the
-top boxes in chunks of RAY_LANES, one per lane, slab-tested and
-ballotted, each taken box tested again against the current best t before
-its clusters are treated the same way; a visited cluster's K triangles lie
+The four cluster kernels (binned, flat, two-level, matrix form) walk each
+ray on RAY_LANES lanes: the top boxes in chunks of RAY_LANES, one per
+lane, slab-tested and ballotted, each taken box tested again against the
+current best t before its clusters are treated the same way; a visited cluster's K triangles lie
 across the lanes, TRIS_PER_LANE consecutive ones per lane; each lane
 picks its best candidate and a butterfly of shuffles on (t, k) picks the
 cluster's; an any hit takes the lowest lane with a hit and its first k.
 
-The plain versions (`_intersect_plain` of accel/pallas_binned.py and
-accel/pallas_cluster_hbm.py) walk cluster by cluster instead. This module
+The flat kernel's top level is the cluster boxes themselves, one cluster
+per top box, visited at once (its one-level form; here the cluster
+ballot tests the same box against the same best t, so the visits agree).
+The plain versions (`_intersect_plain` of
+accel/pallas_binned.py, pallas_cluster.py, pallas_cluster_hbm.py and
+pallas_mxu.py) walk cluster by cluster instead. This module
 repeats the kernel's steps, vectorised over the rays, so that the CPU
 tests can hold the kernel's order bit-equal to them: the same results and
 the same (ray, cluster) visits. Nothing but the tests calls it.
@@ -19,8 +23,17 @@ from __future__ import annotations
 
 import torch
 
+from henjou_torch.accel import pallas_mxu as pmxu
 from henjou_torch.accel.pallas_binned import BinnedClusters, _baldwin
-from henjou_torch.accel.pallas_cluster import K, _mt, _new_best, _safe_inv, _slab
+from henjou_torch.accel.pallas_cluster import (
+    K,
+    PackedClusters,
+    _accept,
+    _mt,
+    _new_best,
+    _safe_inv,
+    _slab,
+)
 from henjou_torch.accel.pallas_cluster_hbm import SC, HbmClusters
 
 RAY_LANES = 32  # cluster_walk.cuh's RAY_LANES
@@ -161,4 +174,40 @@ def walk_hbm(hc: HbmClusters, ray_o, ray_d, tmin, tmax, any_hit: bool):
 
     levels = (hc.aabb2, hc.num_super, SC, hc.num_super * SC, hc.aabb)
     return walk(levels, evaluate, lambda c: hc.order[c], False,
+                ray_o, ray_d, tmin, tmax, any_hit)
+
+
+def walk_flat(pc: PackedClusters, ray_o, ray_d, tmin, tmax, any_hit: bool):
+    """cluster.cu's walk (`MtTest<SplitPlanes>` on the nine [C, K]
+    planes): the C cluster boxes as the top level, one cluster each; the
+    padding columns of `aabb` are never reached."""
+    planes = pc.planes()
+
+    def evaluate(c, idx, bt):
+        tt, uu, vv, ok = _mt(ray_o[idx], ray_d[idx], *(p[c] for p in planes), tmin[idx], bt)
+        return tt, uu, vv, ok & (pc.order[c] >= 0)
+
+    levels = (pc.aabb, pc.num_clusters, 1, pc.num_clusters, pc.aabb)
+    return walk(levels, evaluate, lambda c: pc.order[c], False,
+                ray_o, ray_d, tmin, tmax, any_hit)
+
+
+def walk_mxu(mc: pmxu.MxuClusters, ray_o, ray_d, tmin, tmax, any_hit: bool):
+    """mxu.cu's walk (`MxuTest`): the two-level walk of `walk_hbm`; a visit
+    forms each lane's numerators as `_numerators` does, in feature order,
+    from the ray's features against its supercluster's centre, then the
+    TPU kernel's epilogue."""
+    g_blocks = mc.g_rows.view(-1, pmxu.NF, 4 * K)
+
+    def evaluate(c, idx, bt):
+        f = pmxu._features(ray_o[idx], ray_d[idx], mc.centers[0:3, c // pmxu.SC])
+        det, u_num, v_num, t_num = pmxu._numerators(f, g_blocks[c]).split(K, dim=1)
+        det_ok = det.abs() > 1e-12
+        inv_det = torch.where(det_ok, 1.0 / det, 0.0)
+        tt, uu, vv = t_num * inv_det, u_num * inv_det, v_num * inv_det
+        ok = _accept(det_ok, uu, vv, tt, tmin[idx], bt)
+        return tt, uu, vv, ok & (mc.order[c] >= 0)
+
+    levels = (mc.aabb2, mc.num_super, pmxu.SC, mc.num_super * pmxu.SC, mc.aabb)
+    return walk(levels, evaluate, lambda c: mc.order[c], False,
                 ray_o, ray_d, tmin, tmax, any_hit)

@@ -13,14 +13,17 @@ cluster AABBs [8, Cp]; every field equals the JAX pack's.
 
 with no clamp of tmin or tmax: a ray with tmax 0 (the TPU wrapper's
 padding lane) misses at once. For CUDA tensors it launches
-``csrc/cluster.cu`` (one thread per ray); for CPU tensors it runs
-`_intersect_plain`, which walks the clusters in the same order with the
-same per-ray slab cull and the same Moller-Trumbore arithmetic, vectorised
-over the rays, so the two agree to the ulp. Both cull per ray where the TPU
-kernel culled per 512-ray tile; a ray never hits inside a box its slab
-test rejects, so that changes no hit beyond ties at a box's edge. With
-``any_hit=True`` a ray stops at its first accepted triangle and returns
-that hit (only `hit` is meant to be read).
+``csrc/cluster.cu`` (the warp-per-ray cluster walk of
+``csrc/cluster_walk.cuh``, the cluster boxes as its one box level); for
+CPU tensors it runs `_intersect_plain`, which walks the clusters in index
+order with a per-ray slab cull and the same Moller-Trumbore arithmetic,
+vectorised over the rays. The two visit the same (ray, cluster) pairs in
+the same order and agree to the bit (`accel/cluster_walk.py` models the
+kernel's order on the CPU). Both cull per ray where the TPU kernel culled
+per 512-ray tile; a ray never hits inside a box its slab test rejects, so
+that changes no hit beyond ties at a box's edge. With ``any_hit=True`` a
+ray stops at its first accepted triangle and returns that hit (only `hit`
+is meant to be read).
 
 The helpers below (`_safe_inv`, `_slab`, `_prepare`, `_mt`, `_take`,
 `_launch`, `_finish`) also serve the two-level and matrix-form
@@ -311,6 +314,9 @@ def _intersect_cuda(pc: PackedClusters, ray_o, ray_d, tmin, tmax, any_hit):
                 **{f"plane{i}": (p, f32) for i, p in enumerate(pc.planes())})
     if pc.order.shape != (pc.num_clusters, K):
         raise ValueError(f"pc.order must be [C, {K}], got {tuple(pc.order.shape)}")
+    if any(x.data_ptr() % 16 for x in (*pc.planes(), pc.order)):
+        raise ValueError("the planes and pc.order must be 16-byte aligned (the kernel loads "
+                         "float4 and int4)")
     args = [p.data_ptr() for p in pc.planes()]
     args += [pc.order.data_ptr(), pc.aabb.data_ptr(), pc.aabb.shape[1], pc.num_clusters]
     out = _launch(_kernel_fn(), "henjou_cluster_intersect", args,

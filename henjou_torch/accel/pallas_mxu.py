@@ -13,11 +13,13 @@ u*det, v*det and t*det. The TPU kernel ran them as one [256, 16] x
 
 `intersect_pallas_mxu` keeps the contract of `intersect_pallas`
 (accel/pallas_cluster.py). For CUDA tensors it launches ``csrc/mxu.cu``
-(one thread per ray, the two-level walk of the HBM kernel, ten-term dot
-products in feature order); for CPU tensors it runs `_intersect_plain`,
-which sums the same ten terms in the same order with explicit products
-and adds, vectorised over the rays: `torch.matmul` is not used, because
-its summation order on the card is unspecified. The two agree to the ulp.
+(the warp-per-ray cluster walk of ``csrc/cluster_walk.cuh`` over both box
+levels, each lane's ten-term dot products in feature order); for CPU
+tensors it runs `_intersect_plain`, which sums the same ten terms in the
+same order with explicit products and adds, vectorised over the rays:
+`torch.matmul` is not used, because its summation order on the card is
+unspecified. The two visit the same (ray, cluster) pairs in the same order
+and agree to the bit.
 
 ``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel;
 ``VISITS`` the (ray, cluster) pairs the plain version tested triangles
@@ -233,6 +235,9 @@ def _intersect_cuda(mc: MxuClusters, ray_o, ray_d, tmin, tmax, any_hit):
         raise ValueError(f"mc.g_rows must be [C2*SC*{NF}, {4 * K}] and mc.order [C2*SC, {K}]")
     if mc.centers.shape[1] != mc.aabb2.shape[1]:
         raise ValueError("mc.centers and mc.aabb2 must have the same columns")
+    if mc.g_rows.data_ptr() % 16 or mc.order.data_ptr() % 16:
+        raise ValueError("mc.g_rows and mc.order must be 16-byte aligned (the kernel loads "
+                         "float4 and int4)")
     args = [mc.g_rows.data_ptr(), mc.order.data_ptr(), mc.aabb.data_ptr(), mc.aabb.shape[1],
             mc.aabb2.data_ptr(), mc.aabb2.shape[1], mc.centers.data_ptr(), mc.num_super]
     out = _launch(_kernel_fn(), "henjou_mxu_intersect", args,

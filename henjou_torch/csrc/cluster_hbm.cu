@@ -10,8 +10,9 @@
 //   aabb  [8, Cp] per cluster, aabb2 [8, C2p] per supercluster of SC = 16
 //         consecutive clusters (rows 0-2 min, 3-5 max).
 //
-// The kernel is the cluster walk of cluster_walk.cuh with `MtTest`
-// (Moller-Trumbore, common.cuh `mt`, the TPU kernel's operation order): a
+// The kernel is the cluster walk of cluster_walk.cuh with
+// `MtTest<RowPlanes>` (Moller-Trumbore, common.cuh `mt`, the TPU kernel's
+// operation order): a
 // warp per ray, the superclusters 32 at a time and a kept supercluster's
 // 16 cluster boxes at once, one box per lane, then each kept cluster's 128
 // triangles across the lanes, four per lane, with their ids as one int4
@@ -52,7 +53,7 @@ extern "C" int henjou_cluster_hbm_intersect(
     int32_t* prim_out, float* u_out, float* v_out, void* stream) {
   const henjou::walk::Levels lv{aabb2, c2p, (int)num_super, SC,
                                 (int)(num_super * SC), aabb, cp};
-  return henjou::walk::launch(henjou::walk::MtTest{rows, order}, lv, ray_o,
-                              ray_d, tmin, tmax, n, any_hit, t_out, prim_out,
-                              u_out, v_out, stream);
+  const henjou::walk::MtTest<henjou::walk::RowPlanes> test{{rows}, order};
+  return henjou::walk::launch(test, lv, ray_o, ray_d, tmin, tmax, n, any_hit,
+                              t_out, prim_out, u_out, v_out, stream);
 }

@@ -1,12 +1,20 @@
-// The cluster walk shared by the binned (binned.cu) and two-level
-// (cluster_hbm.cu) intersectors: a warp per ray, the 128 triangles of a
-// cluster across its 32 lanes.
+// The cluster walk shared by the four cluster intersectors: binned
+// (binned.cu), flat (cluster.cu), two-level (cluster_hbm.cu) and matrix
+// form (mxu.cu). A warp per ray, the 128 triangles of a cluster across its
+// 32 lanes.
 //
-// Both packs hold a cluster as 16 planes of K = 128 floats, planes-major
-// (`rows [C*16, K]`), under two box levels: a top level over runs of
-// `per_top` consecutive clusters (binned `gaabb` over groups, two-level
-// `aabb2` over superclusters) and the cluster boxes (`aabb`). Boxes are
-// [8, stride] tables, rows 0-2 min and 3-5 max.
+// The three pack layouts, each K = 128 triangles per cluster under two box
+// levels, a top level over runs of `per_top` consecutive clusters and the
+// cluster boxes (`aabb`); boxes are [8, stride] tables, rows 0-2 min and
+// 3-5 max:
+// - binned and two-level: 16 planes of K floats per cluster, planes-major
+//   (`rows [C*16, K]`); the top boxes are binned `gaabb` over groups and
+//   two-level `aabb2` over superclusters of 16;
+// - flat: nine separate [C, K] planes v0 | e1 | e2 and one box level,
+//   walked as a top level of the cluster boxes themselves (per_top = 1,
+//   `kOneLevel`);
+// - matrix form: per cluster 16 feature rows of 4K floats, columns det | u
+//   | v | t (`g_rows [C*16, 4K]`), under `aabb2` over superclusters of 16.
 //
 // The walk, for one ray on RAY_LANES lanes:
 // - the top boxes in chunks of RAY_LANES, one box per lane, slab-tested
@@ -15,14 +23,17 @@
 // - a taken box is tested again against the current best_t (it only
 //   shrinks, so a box the chunk's test dropped stays dropped), then its
 //   clusters the same way: one cluster box per lane, a ballot, the set bits
-//   in order, each re-tested against the current best_t before the visit.
+//   in order, each re-tested against the current best_t before the visit
+//   (the flat pack's one-level form visits the taken box's cluster at
+//   once: its retest is the cluster's test).
 //   So the walk visits exactly the (ray, cluster) pairs of a sequential walk
 //   in index order, which is what the plain versions do;
-// - a visit loads each plane as one 16-byte vector per lane (lane l owns
-//   triangles TRIS_PER_LANE*l ..; a warp reads 512 contiguous bytes per
-//   plane, the loads issued together) and runs the pack's triangle test
-//   (`BinnedTest`, `MtTest`) on the lane's triangles against best_t as it
-//   stood at the start of the cluster;
+// - a visit loads each plane (each feature row's column group in the
+//   matrix form) as one 16-byte vector per lane (lane l owns triangles
+//   TRIS_PER_LANE*l ..; a warp reads 512 contiguous bytes per plane, the
+//   loads issued together) and runs the pack's triangle test (`BinnedTest`,
+//   `MtTest<RowPlanes>`, `MtTest<SplitPlanes>`, `MxuTest`) on the lane's triangles against best_t as it stood
+//   at the start of the cluster;
 // - closest hit: each lane keeps its smallest accepted t, the lowest k on a
 //   tie (a strict `<` in ascending k), and a butterfly of shuffles on
 //   (t, k) takes the smallest t and on equal t the lower k: torch.min's
@@ -45,6 +56,9 @@
 
 namespace henjou {
 namespace walk {
+// Unnamed: each source that includes this header gets its own kernels and
+// policies, so no kernel is instantiated in two sources.
+namespace {
 
 // The layout and launch shape were timed on an H100 against 8 and 16
 // lanes per ray, 256 threads and 64-98 registers (PERF.md): a warp
@@ -145,11 +159,31 @@ struct BinnedTest {
   }
 };
 
-// Moller-Trumbore (common.cuh `mt`) on planes 0-8 (v0 | e1 | e2), the prim
-// ids in `order` [C, K]; padding (prim < 0) is never accepted. An any hit
-// reports the accepted triangle itself.
-struct MtTest {
+// Plane p of cluster c in the two-level pack, rows [C*16, K].
+struct RowPlanes {
   const float* __restrict__ rows;
+  __device__ __forceinline__ const float* at(int c, int p) const {
+    return rows + (long long)c * PLANES * K + p * K;
+  }
+};
+
+// Plane p of cluster c in the flat pack, nine [C, K] tensors.
+struct SplitPlanes {
+  const float* __restrict__ planes[9];
+  __device__ __forceinline__ const float* at(int c, int p) const {
+    return planes[p] + (long long)c * K;
+  }
+};
+
+// Moller-Trumbore (common.cuh `mt`) on the nine planes v0 | e1 | e2 of
+// either layout, the prim ids in `order` [C, K]; padding (prim < 0) is
+// never accepted. An any hit reports the accepted triangle itself. The
+// layout is a type, not nine pointers and a stride for both: the two-level
+// walk keeps one base address and the planes' constant offsets (nine
+// pointers cost it 4% on an H100, PERF.md).
+template <class Planes>
+struct MtTest {
+  Planes planes;
   const int32_t* __restrict__ order;
   static constexpr bool kAnyHitFlag = false;
 
@@ -159,11 +193,11 @@ struct MtTest {
                                        float (&u)[TRIS_PER_LANE],
                                        float (&v)[TRIS_PER_LANE],
                                        bool (&ok)[TRIS_PER_LANE]) const {
-    const float* __restrict__ cl = rows + (long long)c * PLANES * K;
     float pl[9][TRIS_PER_LANE];
     int32_t ids[TRIS_PER_LANE];
 #pragma unroll
-    for (int p = 0; p < 9; ++p) load_plane<float, float4>(cl, p, lane, pl[p]);
+    for (int p = 0; p < 9; ++p)
+      load_plane<float, float4>(planes.at(c, p), 0, lane, pl[p]);
     load_plane<int32_t, int4>(order + (long long)c * K, 0, lane, ids);
 #pragma unroll
     for (int i = 0; i < TRIS_PER_LANE; ++i) {
@@ -172,6 +206,96 @@ struct MtTest {
               mt(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, pl[0][i], pl[1][i],
                  pl[2][i], pl[3][i], pl[4][i], pl[5][i], pl[6][i], pl[7][i],
                  pl[8][i], r.tmin, best_t, t[i], u[i], v[i]);
+    }
+  }
+
+  __device__ __forceinline__ int32_t prim(int c, int k) const {
+    return order[(long long)c * K + k];
+  }
+};
+
+// The matrix form of Moller-Trumbore (the TPU kernel's [rays, 16] x
+// [16, 4K] product per cluster, pallas_mxu.py): cluster c's block is the
+// feature rows c*NF .. c*NF + 9 of `g_rows` [C*NF, 4K], each row's columns
+// det | u | v | t, K each. The ray's features F = [d, d x o', o', 1], with
+// o' = o - centers[:, c / SC] ([4, centers_stride]), are alike on every
+// lane. Each lane sums F_q * G_q for its triangles in feature order 0..9,
+// starting from F_0 * G_0, as `_numerators` does, then divides as the TPU
+// kernel's epilogue. The det and t columns come first; a lane loads u and v
+// only when one of its triangles has |det| > 1e-12 and t in (tmin, best_t),
+// the only case they can decide. The prim ids are in `order` [C, K];
+// padding (prim < 0, G zero) is never accepted. An any hit reports the
+// accepted triangle itself.
+struct MxuTest {
+  static constexpr int SC = 16;  // clusters per supercluster
+  static constexpr int NF = 16;  // feature rows per cluster block
+  static constexpr int NU = 10;  // feature rows used
+  const float* __restrict__ g_rows;
+  const int32_t* __restrict__ order;
+  const float* __restrict__ centers;
+  long long centers_stride;
+  static constexpr bool kAnyHitFlag = false;
+
+  // acc[i] (+)= F_q * G_q over q = 0..NU-1 for column group `col`
+  __device__ __forceinline__ void column(const float* __restrict__ g,
+                                         const float (&f)[NU], int col,
+                                         int lane,
+                                         float (&acc)[TRIS_PER_LANE]) const {
+#pragma unroll
+    for (int q = 0; q < NU; ++q) {
+      float x[TRIS_PER_LANE];
+      load_plane<float, float4>(g + (long long)q * 4 * K, col, lane, x);
+#pragma unroll
+      for (int i = 0; i < TRIS_PER_LANE; ++i)
+        acc[i] = q == 0 ? f[0] * x[i] : acc[i] + f[q] * x[i];
+    }
+  }
+
+  __device__ __forceinline__ void eval(int c, int lane, const Ray& r,
+                                       float best_t,
+                                       float (&t)[TRIS_PER_LANE],
+                                       float (&u)[TRIS_PER_LANE],
+                                       float (&v)[TRIS_PER_LANE],
+                                       bool (&ok)[TRIS_PER_LANE]) const {
+    const int c2 = c / SC;
+    const float opx = r.ox - centers[c2];
+    const float opy = r.oy - centers[centers_stride + c2];
+    const float opz = r.oz - centers[2 * centers_stride + c2];
+    const float f[NU] = {r.dx,
+                         r.dy,
+                         r.dz,
+                         r.dy * opz - r.dz * opy,
+                         r.dz * opx - r.dx * opz,
+                         r.dx * opy - r.dy * opx,
+                         opx,
+                         opy,
+                         opz,
+                         1.0f};
+    const float* __restrict__ g = g_rows + (long long)c * NF * 4 * K;
+    float det[TRIS_PER_LANE], inv_det[TRIS_PER_LANE];
+    column(g, f, 0, lane, det);
+    column(g, f, 3, lane, t);
+    bool any_in = false;  // a triangle with det and t in range
+#pragma unroll
+    for (int i = 0; i < TRIS_PER_LANE; ++i) {
+      const bool det_ok = fabsf(det[i]) > 1e-12f;
+      inv_det[i] = det_ok ? 1.0f / det[i] : 0.0f;
+      t[i] = t[i] * inv_det[i];
+      ok[i] = det_ok && t[i] > r.tmin && t[i] < best_t;
+      any_in |= ok[i];
+      u[i] = v[i] = 0.0f;
+    }
+    if (!any_in) return;
+    int32_t ids[TRIS_PER_LANE];
+    column(g, f, 1, lane, u);
+    column(g, f, 2, lane, v);
+    load_plane<int32_t, int4>(order + (long long)c * K, 0, lane, ids);
+#pragma unroll
+    for (int i = 0; i < TRIS_PER_LANE; ++i) {
+      u[i] = u[i] * inv_det[i];
+      v[i] = v[i] * inv_det[i];
+      ok[i] = ok[i] && ids[i] >= 0 && u[i] >= 0.0f && v[i] >= 0.0f &&
+              u[i] + v[i] <= 1.0f;
     }
   }
 
@@ -241,7 +365,10 @@ __device__ __forceinline__ bool visit(const Test& test, int c, int lane,
   return true;
 }
 
-template <class Test>
+// kOneLevel: a taken top box is itself the cluster to visit (the flat
+// pack, per_top = 1); the retest against the current best_t is then the
+// cluster's test, and the cluster ballot is skipped.
+template <class Test, bool kOneLevel>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     walk_kernel(Test test, Levels lv, const float* __restrict__ ray_o,
                 const float* __restrict__ ray_d,
@@ -289,6 +416,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
             !slab(lv.top, lv.top_stride, gt, r.ox, r.oy, r.oz, r.ix, r.iy,
                   r.iz, r.tmin, best.t))
           continue;
+        if constexpr (kOneLevel) {
+          if (visit(test, gt, lane, mask, shift, r, hit_mode, best) &&
+              hit_mode)
+            goto done;
+          continue;
+        }
         for (int j0 = 0; j0 < lv.per_top; j0 += RAY_LANES) {
           const int j = j0 + lane;
           const int c = gt * lv.per_top + j;
@@ -325,7 +458,7 @@ done:
 }
 
 // Launch the walk over `n` rays on `stream`; returns cudaGetLastError().
-template <class Test>
+template <class Test, bool kOneLevel = false>
 inline int launch(const Test& test, const Levels& lv, const float* ray_o,
                   const float* ray_d, const float* tmin, const float* tmax,
                   long long n, long long any_hit, float* t_out,
@@ -333,7 +466,7 @@ inline int launch(const Test& test, const Levels& lv, const float* ray_o,
                   void* stream) {
   const unsigned blocks = blocks_for(n * RAY_LANES, THREADS);
   if (blocks > 0) {
-    walk_kernel<Test><<<blocks, THREADS, 0,
+    walk_kernel<Test, kOneLevel><<<blocks, THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         test, lv, ray_o, ray_d, tmin, tmax, n, (int)any_hit, t_out, prim_out,
         u_out, v_out);
@@ -341,5 +474,6 @@ inline int launch(const Test& test, const Levels& lv, const float* ray_o,
   return (int)cudaGetLastError();
 }
 
+}  // namespace
 }  // namespace walk
 }  // namespace henjou

@@ -1,5 +1,5 @@
-// Helpers shared by the intersector kernels (cluster.cu, mxu.cu, and
-// binned.cu and cluster_hbm.cu through cluster_walk.cuh). Every function keeps the arithmetic, and its
+// Helpers shared by the intersector kernels (binned.cu, cluster.cu,
+// cluster_hbm.cu and mxu.cu, through cluster_walk.cuh). Every function keeps the arithmetic, and its
 // order, of the matching plain PyTorch helper, so that a kernel built
 // with --fmad=false agrees with its plain version to the ulp.
 

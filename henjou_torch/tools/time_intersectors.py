@@ -1,15 +1,18 @@
-"""Time the binned and two-level intersector kernels on test rays in two
-orders: as drawn, and as the main path hands them to a kernel.
+"""Time the four cluster intersector kernels (binned, flat, two-level,
+matrix form) on test rays in two orders: as drawn, and as the main path
+hands them to a kernel.
 
     python -m henjou_torch.tools.time_intersectors --device cuda
 
 For the sphere gallery and contest frame 0, 65,536 test rays (half
 jittered camera rays through random pixels, half with origins uniform in
 the scene box and uniform directions; `test_rays`) go through
-``intersect_binned`` and ``intersect_pallas_hbm``, closest and any hit,
-unsorted and sorted as `make_bitonic_sorted_intersector` sorts them
-(`sorted_rays`: `ray_sort_key` over the scene box, `DEAD_KEY` lanes last,
-one `bitonic_sort` carrying the lane id). Each time is the mean of
+``intersect_binned``, ``intersect_pallas``, ``intersect_pallas_hbm`` and
+``intersect_pallas_mxu``, each over its own pack of the frame's
+triangles, closest and any hit, unsorted and sorted as
+`make_bitonic_sorted_intersector` sorts them (`sorted_rays`:
+`ray_sort_key` over the scene box, `DEAD_KEY` lanes last, one
+`bitonic_sort` carrying the lane id). Each time is the mean of
 ``--reps`` calls after a warm-up, by CUDA events around the wrapper's
 calls (`ms`, host launches included) and as the replay of a CUDA graph of
 one call (`graph_ms`, the device's time alone). Prints the card's name
@@ -55,30 +58,31 @@ def test_rays(renderer, accel, cam, dev, rng, n=N_RAYS):
 
 
 def sorted_rays(o, d, tmin, tmax, lo, hi):
-    """(o, d) in the order `make_bitonic_sorted_intersector` hands the
-    kernel: by `ray_sort_key`, rays with tmax <= tmin last, through the
-    bitonic sort with the lane id carried. [n] tmin and tmax; n a power
-    of two of at least 1024."""
+    """(o, d, src) in the order `make_bitonic_sorted_intersector` hands
+    the kernel: by `ray_sort_key`, rays with tmax <= tmin last, through the
+    bitonic sort with the lane id carried; src [n] int32 is each sorted
+    ray's row in o, d. [n] tmin and tmax; n a power of two of at least
+    1024."""
     from henjou_torch.accel import bitonic
     from henjou_torch.accel.sorting import DEAD_KEY, ray_sort_key
 
     inv_extent = 1.0 / torch.clamp(hi - lo, min=1e-12)
     key = torch.where(tmax > tmin, ray_sort_key(o, d, lo, inv_extent), DEAD_KEY)
     lane = torch.arange(o.shape[0], dtype=torch.int32, device=o.device)
-    _, so, sd, _ = bitonic.bitonic_sort(key.contiguous(), o, d, lane)
-    return so, sd
+    _, so, sd, src = bitonic.bitonic_sort(key.contiguous(), o, d, lane)
+    return so, sd, src
 
 
 def ray_orders(accel, o, d):
-    """{"unsorted": (o, d), "sorted": `sorted_rays` of them} for tmin
-    1e-3 and the default tmax, over the scene box of the binned pack
-    `accel`."""
+    """{"unsorted": (o, d, arange), "sorted": `sorted_rays` of them}: each
+    order's rays and their rows in o, d, for tmin 1e-3 and the default
+    tmax, over the scene box of the binned pack `accel`."""
     from henjou_torch.math.constants import TMAX_RAY
 
     n = o.shape[0]
     tmin = torch.full((n,), 1e-3, device=o.device)
     tmax = torch.full((n,), TMAX_RAY, device=o.device)
-    return {"unsorted": (o, d),
+    return {"unsorted": (o, d, torch.arange(n, dtype=torch.int32, device=o.device)),
             "sorted": sorted_rays(o, d, tmin, tmax, accel.scene_lo, accel.scene_hi)}
 
 
@@ -120,7 +124,9 @@ def graph_ms(fn, reps: int = 20):
 def run(device, reps: int = 20, seed: int = 2):
     """Yield one dict per (scene, kernel, hit, order)."""
     from henjou_torch.accel import pallas_binned as pb
+    from henjou_torch.accel import pallas_cluster as pc
     from henjou_torch.accel import pallas_cluster_hbm as hbm
+    from henjou_torch.accel import pallas_mxu as mxu
     from henjou_torch.math.constants import TMAX_RAY
     from henjou_torch.runtime.renderer import Renderer
 
@@ -135,11 +141,14 @@ def run(device, reps: int = 20, seed: int = 2):
         tmin = torch.full((n,), 1e-3, device=device)
         tmax = torch.full((n,), TMAX_RAY, device=device)
         orders = ray_orders(accel, o, d)
-        hc = hbm.pack_clusters_hbm_np(fs.tri_verts.cpu().numpy(), device)
-        for kernel, fn, packed in (("binned", pb.intersect_binned, accel),
-                                   ("cluster_hbm", hbm.intersect_pallas_hbm, hc)):
+        tris = fs.tri_verts.cpu().numpy()
+        for kernel, fn, packed in (
+                ("binned", pb.intersect_binned, accel),
+                ("cluster", pc.intersect_pallas, pc.pack_clusters(fs.tri_verts)),
+                ("cluster_hbm", hbm.intersect_pallas_hbm, hbm.pack_clusters_hbm_np(tris, device)),
+                ("mxu", mxu.intersect_pallas_mxu, mxu.pack_clusters_mxu_np(tris, device))):
             for any_hit in (False, True):
-                for order, (ro, rd) in orders.items():
+                for order, (ro, rd, _) in orders.items():
                     # tmin and tmax on the device: a graph captures no host copy
                     def call():
                         return fn(packed, ro, rd, tmin, tmax, any_hit=any_hit)
@@ -152,7 +161,7 @@ def run(device, reps: int = 20, seed: int = 2):
 def main(argv=None) -> int:
     from henjou_torch.runtime.renderer import resolve_device
 
-    ap = argparse.ArgumentParser(description="time the binned and two-level kernels")
+    ap = argparse.ArgumentParser(description="time the cluster intersector kernels")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)

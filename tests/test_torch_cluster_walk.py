@@ -1,5 +1,5 @@
-"""The order of the cluster walk of csrc/cluster_walk.cuh (the binned and
-two-level kernels), modelled step for step in plain torch by
+"""The order of the cluster walk of csrc/cluster_walk.cuh (the binned,
+flat, two-level and matrix-form kernels), modelled step for step in plain torch by
 `henjou_torch.accel.cluster_walk`: lane l owns triangles 4l..4l+3, the box
 levels go in chunks of 32 re-tested against the current best t, each lane
 picks its candidate and a butterfly on (t, k) picks the cluster's, an any
@@ -22,9 +22,13 @@ import torch
 
 from henjou_torch.accel import cluster_walk as cw
 from henjou_torch.accel import pallas_binned as tpb
+from henjou_torch.accel import pallas_cluster as tpc
 from henjou_torch.accel import pallas_cluster_hbm as thbm
+from henjou_torch.accel import pallas_mxu as tmxu
 from henjou_tpu.accel import pallas_binned as jpb
+from henjou_tpu.accel import pallas_cluster as jpc
 from henjou_tpu.accel import pallas_cluster_hbm as jhbm
+from henjou_tpu.accel import pallas_mxu as jmxu
 
 # one intra-op thread: the test lane runs several pytest workers at once
 torch.set_num_threads(1)
@@ -38,6 +42,11 @@ CASES = {  # case: (triangles, copies of each, rays)
     "hbm": (5000, 1, 1024),
     "hbm ties": (1700, 3, 1024),
     "hbm 33 superclusters": (66_000, 1, 384),  # two box chunks
+    "flat": (5000, 1, 1024),  # 40 cluster boxes: two top chunks
+    "flat ties": (1700, 3, 1024),
+    "mxu": (5000, 1, 1024),
+    "mxu ties": (1700, 3, 1024),
+    "mxu 33 superclusters": (66_000, 1, 384),
 }
 
 
@@ -60,7 +69,11 @@ def _scene(n_tri, copies, n_rays, seed=9):
 def _pack(case, tris, monkeypatch):
     """(plain-version module, pack, walk model) of a case; binned packs of
     16, 32 and 64 clusters per group through the pack's thresholds."""
-    if not case.startswith("binned"):
+    if case.startswith("flat"):
+        return tpc, tpc.pack_clusters(torch.from_numpy(tris)), cw.walk_flat
+    if case.startswith("mxu"):
+        return tmxu, tmxu.pack_clusters_mxu_np(tris, "cpu"), cw.walk_mxu
+    if case.startswith("hbm"):
         return thbm, thbm.pack_clusters_hbm_np(tris, "cpu"), cw.walk_hbm
     group = int(case.split()[-1]) if "group" in case else 1
     if group > 1:
@@ -86,7 +99,7 @@ def _rays(case):
 def _prepare(mod, pack, o, d, tmin, tmax):
     if mod is tpb:
         return tpb._prepare(pack, o, d, tmin, tmax)
-    return thbm._prepare(o, d, tmin, tmax, pack.rows)
+    return tpc._prepare(o, d, tmin, tmax, pack.aabb)
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
@@ -114,7 +127,7 @@ def test_walk_model_matches_plain(case, any_hit, monkeypatch):
         assert visits == mod.VISITS > 0
 
 
-@pytest.mark.parametrize("case", ["binned ties", "hbm ties"])
+@pytest.mark.parametrize("case", ["binned ties", "hbm ties", "flat ties", "mxu ties"])
 def test_walk_model_ties_take_the_first_copy(case, monkeypatch):
     """Three copies of each triangle tie in t; the closest hit is the copy
     the walk reaches first (the earlier cluster, then the lower k), and the
@@ -180,15 +193,43 @@ def _bw_kappa_t(bc, prim, o, d):
             + np.abs(den).sum(1) / np.abs(den.sum(1)))
 
 
+def _mxu_kappa(mc, prim, o, d):
+    """kappa of t, u and v of the matrix form at the packed G columns of
+    triangles `prim`, in float64: the ten terms F_q * G_q of det and of
+    each numerator (tests/test_torch_cluster.py)."""
+    order = mc.order.numpy().reshape(-1)
+    where = np.full(order.max() + 1, -1)
+    where[order[order >= 0]] = np.nonzero(order >= 0)[0]
+    c, k = where[prim] // tmxu.K, where[prim] % tmxu.K
+    g = mc.g_rows.numpy().reshape(-1, tmxu.NF, 4, tmxu.K)[c, :10, :, k].astype(np.float64)
+    op = o - mc.centers.numpy()[0:3, c // tmxu.SC].T.astype(np.float64)
+    f = np.stack([d[:, 0], d[:, 1], d[:, 2], d[:, 1] * op[:, 2] - d[:, 2] * op[:, 1],
+                  d[:, 2] * op[:, 0] - d[:, 0] * op[:, 2], d[:, 0] * op[:, 1] - d[:, 1] * op[:, 0],
+                  op[:, 0], op[:, 1], op[:, 2], np.ones_like(d[:, 0])], 1)
+    det_t, u_t, v_t, t_t = (f * g[:, :, i] for i in range(4))
+    det = np.abs(det_t.sum(1))
+    k_det = np.abs(det_t).sum(1) / det
+    return [np.abs(x).sum(1) / det + k_det * np.abs(x.sum(1) / det) for x in (t_t, u_t, v_t)]
+
+
+_INTERPRET = {  # kind: (case, JAX pack builder, JAX kernel)
+    "binned": ("binned group 1", jpb.pack_binned_np, jpb.intersect_binned),
+    "hbm": ("hbm", jhbm.pack_clusters_hbm_np, jhbm.intersect_pallas_hbm),
+    "flat": ("flat", lambda tris: jpc.pack_clusters(jnp.asarray(tris)), jpc.intersect_pallas),
+    "mxu": ("mxu", jmxu.pack_clusters_mxu_np, jmxu.intersect_pallas_mxu),
+}
+
+
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-@pytest.mark.parametrize("kind", ["binned", "hbm"])
+@pytest.mark.parametrize("kind", list(_INTERPRET))
 def test_walk_model_matches_interpret(kind, any_hit, monkeypatch):
     """The model against the JAX kernels in interpret mode: hit flips at
-    most 1e-4 of the rays (binned; none for the two-level kernel), prims
-    equal; t, u and v within 8 ulps of each hit's conditioning
+    most 1e-4 of the rays (binned; none for the Moller-Trumbore kernels),
+    prims equal; t, u and v within 8 ulps of each hit's conditioning
     (tests/test_torch_cluster.py; for binned t, the Baldwin-Weber
-    quotient's), and binned u, v within 5e-5 (tests/test_torch_accel.py)."""
-    case = "binned group 1" if kind == "binned" else "hbm"
+    quotient's; for the matrix form, its ten-term sums'), and binned u, v
+    within 5e-5 (tests/test_torch_accel.py)."""
+    case, jpack, jfn = _INTERPRET[kind]
     tris, o, d = _scene(*CASES[case])
     o_t, d_t = torch.from_numpy(o), torch.from_numpy(d)
     jo, jd = jnp.asarray(o), jnp.asarray(d)
@@ -196,13 +237,10 @@ def test_walk_model_matches_interpret(kind, any_hit, monkeypatch):
     tn, tx = _prepare(mod, pack, o_t, d_t, 1e-3, 20.0)
     (t, prim, u, v), _ = model(pack, o_t, d_t, tn, tx, any_hit)
     hit = (prim >= 0).numpy()
+    ref = jfn(jpack(tris), jo, jd, 1e-3, 20.0, any_hit=any_hit, interpret=True)
     if kind == "binned":
-        ref = jpb.intersect_binned(jpb.pack_binned_np(tris), jo, jd, 1e-3, 20.0,
-                                   any_hit=any_hit, interpret=True)
         assert (np.asarray(ref[4]) != hit).sum() <= 1e-4 * len(o)
     else:
-        ref = jhbm.intersect_pallas_hbm(jhbm.pack_clusters_hbm_np(tris), jo, jd, 1e-3, 20.0,
-                                        any_hit=any_hit, interpret=True)
         np.testing.assert_array_equal(np.asarray(ref[4]), hit)
     assert 200 < hit.sum() < len(o)
     if any_hit:
@@ -217,5 +255,8 @@ def test_walk_model_matches_interpret(kind, any_hit, monkeypatch):
         for a, b in ((g_u, r_u), (g_v, r_v)):
             np.testing.assert_allclose(a, b, rtol=0, atol=5e-5)
         return
-    for a, b, kappa in zip((g_t, g_u, g_v), (r_t, r_u, r_v), _mt_kappa(o[both], d[both], tris[g_p])):
+    o64, d64 = o[both].astype(np.float64), d[both].astype(np.float64)
+    kappas = (_mxu_kappa(pack, g_p, o64, d64) if kind == "mxu"
+              else _mt_kappa(o[both], d[both], tris[g_p]))
+    for a, b, kappa in zip((g_t, g_u, g_v), (r_t, r_u, r_v), kappas):
         assert (np.abs(a.astype(np.float64) - b) <= 8 * 2.0**-23 * kappa).all()

@@ -1,6 +1,6 @@
-"""The CUDA kernels against their plain versions, on the card: 89 cases,
-32 of them the cluster walk of the binned and two-level kernels, 7 the
-denoiser's tensor ops on CUDA against the CPU.
+"""The CUDA kernels against their plain versions, on the card: 109 cases,
+52 of them the cluster walk of the binned, flat, two-level and
+matrix-form kernels, 7 the denoiser's tensor ops on CUDA against the CPU.
 
 These need an NVIDIA GPU and nvcc; without them they skip. The tests
 directory's conftest imports jax, which the GPU machine may not have, so
@@ -162,27 +162,37 @@ def _binned_pack(tris, group, dev, monkeypatch):
 @pytest.mark.parametrize("case", [
     "binned group 1", "binned group 16", "binned group 32", "binned group 64",
     "binned ties", "hbm", "hbm ties", "hbm 33 superclusters",
+    "flat", "flat ties", "mxu", "mxu ties", "mxu 33 superclusters",
 ])
 def test_walk_kernels_match_plain(cuda, monkeypatch, case, any_hit, order):
-    """binned.cu and cluster_hbm.cu (the warp-per-ray walk of
-    csrc/cluster_walk.cuh) against their plain versions, bit-equal: packs of
-    1, 16, 32 and 64 clusters per group (40 groups of 1: two box chunks;
-    64 clusters in a group: two cluster chunks), duplicated triangles, 33
+    """binned.cu, cluster.cu, cluster_hbm.cu and mxu.cu (the warp-per-ray
+    walk of csrc/cluster_walk.cuh) against their plain versions,
+    bit-equal: packs of 1, 16, 32 and 64 clusters per group (40 groups of
+    1: two box chunks; 64 clusters in a group: two cluster chunks), 40
+    flat cluster boxes (two chunks), duplicated triangles, 33
     superclusters, dead lanes (tmax 0 and tmax == tmin), 4093 rays (not a
     multiple of a block's 4), unsorted or in the sorted wrapper's order."""
+    from henjou_torch.accel import pallas_cluster as pc
     from henjou_torch.accel import pallas_cluster_hbm as hbm
+    from henjou_torch.accel import pallas_mxu as mxu
     from henjou_torch.accel.sorting import DEAD_KEY, ray_sort_key
 
-    n_tri, copies = {"hbm 33 superclusters": (66_000, 1)}.get(
-        case, (1700, 3) if "ties" in case else (5000, 1))
+    n_tri, copies = (66_000, 1) if "33" in case else (1700, 3) if "ties" in case else (5000, 1)
     tris, o, d = _walk_scene(n_tri, copies, 4093, seed=9)
     if case.startswith("binned"):
         mod, fn, plain = pb, pb.intersect_binned, pb.intersect_binned_plain
         packed = _binned_pack(tris, int(case.split()[-1]) if "group" in case else 1, cuda,
                               monkeypatch)
+    elif case.startswith("flat"):
+        mod, fn, plain = pc, pc.intersect_pallas, pc.intersect_pallas_plain
+        packed = pc.pack_clusters(torch.from_numpy(tris).to(cuda))
+        assert packed.num_clusters == 40
     else:
-        mod, fn, plain = hbm, hbm.intersect_pallas_hbm, hbm.intersect_pallas_hbm_plain
-        packed = hbm.pack_clusters_hbm_np(tris, cuda)
+        mod, fn, plain = {
+            "hbm": (hbm, hbm.intersect_pallas_hbm, hbm.intersect_pallas_hbm_plain),
+            "mxu": (mxu, mxu.intersect_pallas_mxu, mxu.intersect_pallas_mxu_plain),
+        }[case.split()[0]]
+        packed = (hbm.pack_clusters_hbm_np if mod is hbm else mxu.pack_clusters_mxu_np)(tris, cuda)
         assert packed.num_super == (33 if "33" in case else 3)
     o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
     n = o.shape[0]
