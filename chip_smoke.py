@@ -73,7 +73,9 @@ prints no result. Phases, each of which raises on failure:
     form its wrapper takes, against its plain version at 65,536 x 10;
     then each full-sort design and each 136-launch row timed twice, by
     CUDA events around the calls and as the replay of a CUDA graph, which
-    leaves out the host's per-launch cost;
+    leaves out the host's per-launch cost; and the device time per launch
+    of ``net_substage``, ``net_local`` and ``roll_pass`` inside rows A, C,
+    D, E and G and the host walk, from torch.profiler's kernel events;
 14. the gallery through the CLI in Denoise, DenoiseUpScale2X and Debug at
     4 spp (copies of its option file): a 512x288 PNG (UpScale2X rendered
     at 256x144), and four 512x288 PNGs for Debug; it runs between phases 9
@@ -146,6 +148,10 @@ TRIS_PER_CLUSTER = 128
 FLOPS_PER_TEST = {"binned": 32, "cluster": 46, "cluster_hbm": 46, "mxu": 81}
 RAY_BYTES = 32 + 16  # o, d, tmin, tmax in; t, prim, u, v out
 NET_TOOLS = ("exp_bitonic", "exp_bitonic2", "exp_bitonic3", "exp_bitonic4")
+# the network kernels' CUDA function names (net_walk's is the keyed
+# engine's `network`, not profiled here)
+NET_KERNEL_NAMES = {"net_substage": ("substage_stacked", "substage_per_plane", "substage_guarded"),
+                    "net_local": ("local_list",), "roll_pass": ("roll_stacked", "roll_per_plane")}
 NET_REPLACES = {
     "net_substage": "tools/exp_bitonic2.py:73 (kern_a), :91 (kern_b), :120 (kern_d), "
                     ":201 (kern_g); tools/exp_bitonic4.py:105 (make_loop over x1, x2 and "
@@ -859,6 +865,44 @@ def _net_forms(bn, st, plain_st):
                bn.roll_pass_plain(plain_st))
 
 
+def net_device_us(bn, rows):
+    """{row label: {kernel: (launches, mean device us per launch)}} of the
+    network kernels in each of `rows` [(label, call)], each call made
+    once, in order, in one torch.profiler session (later sessions in one
+    process lost kernel events on the card). The kernel events, sorted by
+    start, are cut by each row's launch count from LAUNCHES; None when the
+    profiler did not record them all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _, fn in rows:  # the warm-up also counts each row's launches
+        before = dict(bn.LAUNCHES)
+        fn()
+        counts.append(sum(bn.LAUNCHES[k] - before[k] for k in NET_KERNEL_NAMES))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _, fn in rows:
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(((e.time_range.start, kernel, e.time_range.elapsed_us())
+                     for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     for kernel, names in NET_KERNEL_NAMES.items()
+                     if any(name in e.name for name in names)),
+                    key=lambda x: x[0])
+    if len(events) != sum(counts):
+        log(f"[net] torch.profiler recorded {len(events)} network kernels of {sum(counts)}")
+        return None
+    out, at = {}, 0
+    for (label, _), count in zip(rows, counts):
+        row = {}
+        for _, kernel, us in events[at:at + count]:
+            n, total = row.get(kernel, (0, 0.0))
+            row[kernel] = (n + 1, total + us)
+        out[label] = {k: (n, total / n) for k, (n, total) in row.items()}
+        at += count
+    return out
+
+
 def phase_bitonic_net(dev, results):
     """13. Every row of the four bitonic-schedule tools, kernels against
     plain versions; the yardsticks beside the full-sort rows; each kernel
@@ -923,7 +967,7 @@ def phase_bitonic_net(dev, results):
                          None, "one stacked (32, 16) substage"),
         "net_local": (lambda: bn.net_local(st, c_list, dst=buf),
                       lambda: bn.net_local_plain(st, c_list, dst=buf),
-                      None, "136 x (32, 16) in shared memory (row C)"),
+                      None, "136 x (32, 16) on one tile layout (row C)"),
         "net_walk": (lambda: bn.net_walk(st, sched, switch=True),
                      lambda: bn.net_walk_plain(st, sched),
                      lambda: argsort_gather(st[0], *st[1:]),
@@ -958,6 +1002,23 @@ def phase_bitonic_net(dev, results):
             log(f"[net] {tool.__name__.rsplit('.', 1)[1]} row {row.upper()}, {len(subs)} launches: "
                 f"{_fmt_ms(g_ms)} in a CUDA graph"
                 + ("" if g_ms is None else f" ({g_ms / len(subs) * 1e3:.3f} us per launch)"))
+    # device time per launch inside the rows, from torch.profiler's kernel
+    # events
+    profiled = (("A", exp_bitonic2.row_fn("a", st, kops, len(subs))),
+                ("C", exp_bitonic2.row_fn("c", st, kops, len(subs))),
+                ("D", exp_bitonic2.row_fn("d", st, kops, len(subs))),
+                ("E", exp_bitonic2.row_fn("e", st, kops, len(subs))),
+                ("G", lambda: sort_per_plane(st, subs, kops)),
+                ("host walk", lambda: host_walk(st, subs, kops)))
+    per_row = net_device_us(bn, profiled)
+    for label, _ in profiled:
+        if per_row is None:
+            log(f"[net] row {label}: torch.profiler showed no complete device time; "
+                "the graph times above stand")
+            continue
+        log(f"[net] row {label}, device time (torch.profiler): " + ", ".join(
+            f"{kernel} {count} launches, {us:.3f} us per launch"
+            for kernel, (count, us) in per_row[label].items()))
     designs = {
         "net_walk, switch, double-buffered": lambda: bn.net_walk(st, sched, switch=True),
         "net_walk, j as read, double-buffered": lambda: bn.net_walk(st, sched),

@@ -23,9 +23,11 @@ anything else, including a launch that CUDA refuses:
 
 - `net_substage`: one (k, j) over the state, stacked or per plane, with
   j and k compile-time, j compile-time and k run-time, or both run-time,
-  or behind a chain of guards;
-- `net_local`: a list of substages with j < TILE, each TILE-element tile
-  in shared memory for the whole list;
+  or behind a chain of guards; each thread owns four pairs and moves them
+  in 16-byte accesses;
+- `net_local`: a list of substages with j < TILE on tiles sized to the
+  list, the keys running the list as (key, source) words in registers
+  under the layouts of `plan_local`, the planes gathered once;
 - `net_walk`: a `Schedule` in one cooperative launch of the keyed network
   engine that `bitonic.bitonic_sort` shares (``csrc/keyed_network.cuh``):
   (key, source) words run the network in passes, the planes are gathered
@@ -53,8 +55,17 @@ from henjou_torch.accel.bitonic import (
 )
 from henjou_torch.csrc import INT, PTR, bind, check
 
-TILE = 1024  # elements per net_local tile
+TILE = 1024  # net_local takes j < TILE
 MAX_LIST = 256  # substages per net_local call
+# net_local: a thread holds 2^LOCAL_REG_BITS words, a warp's lanes are
+# LOCAL_LANE_BITS more element bits, the rest of a tile's are warp bits
+LOCAL_REG_BITS = 3
+LOCAL_LANE_BITS = 5
+LOCAL_MIN_BITS = LOCAL_REG_BITS + LOCAL_LANE_BITS  # a one-warp tile, 256 elements
+# plan codes of net_local (csrc/bitonic_net.cu `LocalPlan`)
+LOCAL_LK_SHIFT = 5
+LOCAL_OP_SHIFT = 10
+LOCAL_NEW_LAYOUT = 1 << 13
 MAX_N = 1 << 30
 ROW = 128  # roll_pass row length
 ROLL_SHIFTS = (16, 112)
@@ -147,6 +158,12 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _check_aligned(*xs: torch.Tensor) -> None:
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("the state and dst must be 16-byte aligned (the kernels load and "
+                         "store 16 bytes)")
+
+
 # ---------------- the substage ----------------
 
 
@@ -207,6 +224,7 @@ def net_substage(src, k, j, *, dst=None, per_plane=False, mode="dynamic", guards
     if _device(src) == "cpu":
         return net_substage_plain(src, k, j, dst=out, per_plane=per_plane, mode=mode,
                                   guards=guards, lj=lj)
+    _check_aligned(src, out)
     p, n = src.shape
     check(_substage_fn()(src.data_ptr(), out.data_ptr(), p, n, j, k, int(per_plane),
                          MODES.index(mode), guards, lj, _stream(src)), "henjou_net_substage")
@@ -238,19 +256,95 @@ def net_local_plain(src, subs, *, dst=None):
     return out.copy_(x)
 
 
+@dataclasses.dataclass(frozen=True)
+class LocalPlan:
+    """How `net_local` runs a list on each tile of 2^bits elements. A
+    layout is a tuple of element bits: register bits 0-2 of a thread's
+    eight words, lane bits 0-4, then the warp bits. `ops[s]` is substage
+    s's (layout index, "reg" or "lane", field): its j is that register or
+    lane bit of the layout. Layout 0 is loaded; each later one begins with
+    a round of the words through shared memory."""
+
+    bits: int
+    layouts: tuple[tuple[int, ...], ...]
+    ops: tuple[tuple[int, str, int], ...]
+
+
+def plan_local(subs) -> LocalPlan:
+    """The plan of `net_local` for `subs` [(k, j), ...], as the kernel's
+    host code makes it (csrc/bitonic_net.cu `plan_local`): the tile is
+    2^bits elements, bits = max(LOCAL_MIN_BITS, log2 of twice the largest
+    j), with bits - LOCAL_MIN_BITS warp bits. From substage i, a layout
+    takes as warp bits those whose next use is furthest ahead (the higher
+    bit on a tie) and serves until a warp bit's next use; its register
+    bits are the three other bits used most in that run (the lower bit on
+    a tie), its lane bits the rest, each group ascending."""
+    ljs = [int(j).bit_length() - 1 for _, j in subs]
+    bits = max([LOCAL_MIN_BITS] + [lj + 1 for lj in ljs])
+    count = len(ljs)
+    layouts, ops = [], []
+    i = 0
+    while True:
+        nxt = {b: next((s for s in range(i, count) if ljs[s] == b), count) for b in range(bits)}
+        warp = sorted(sorted(range(bits), key=lambda b: (-nxt[b], -b))[:bits - LOCAL_MIN_BITS])
+        end = min([nxt[b] for b in warp] + [count])
+        uses = {b: ljs[i:end].count(b) for b in range(bits)}
+        rest = [b for b in range(bits) if b not in warp]
+        regs = sorted(sorted(rest, key=lambda b: (-uses[b], b))[:LOCAL_REG_BITS])
+        lanes = [b for b in rest if b not in regs]
+        for s in range(i, end):
+            b = ljs[s]
+            ops.append((len(layouts), "reg", regs.index(b)) if b in regs
+                       else (len(layouts), "lane", lanes.index(b)))
+        layouts.append(tuple(regs + lanes + warp))
+        i = end
+        if i >= count:
+            return LocalPlan(bits=bits, layouts=tuple(layouts), ops=tuple(ops))
+
+
+def local_plan_codes(subs, plan: LocalPlan | None = None):
+    """(codes, layouts) of `plan` (of `subs` when None) as the kernel
+    encodes them: a substage's code holds log2 j, log2 k, the op (0-2
+    register bit, 3-7 lane bit 0-4) and LOCAL_NEW_LAYOUT on the first
+    substage of each layout; a layout 4 bits per field."""
+    plan = plan_local(subs) if plan is None else plan
+    codes, last = [], None
+    for (k, j), (li, kind, f) in zip(subs, plan.ops):
+        op = f if kind == "reg" else LOCAL_REG_BITS + f
+        codes.append((int(j).bit_length() - 1) | (int(k).bit_length() - 1) << LOCAL_LK_SHIFT
+                     | op << LOCAL_OP_SHIFT | (LOCAL_NEW_LAYOUT if li != last else 0))
+        last = li
+    layouts = [sum(b << (4 * f) for f, b in enumerate(lay)) for lay in plan.layouts]
+    return codes, layouts
+
+
 @functools.cache
 def _local_fn():
     return bind("henjou_net_local", [PTR, PTR, INT, INT, PTR, PTR, INT, PTR])
 
 
+def kernel_local_plan(subs):
+    """(codes, layouts, bits) of the plan that the kernel's host code
+    makes for `subs`, read from the library: for the tests on the card."""
+    fn = bind("henjou_net_local_plan", [PTR, PTR, INT, PTR, PTR, PTR])
+    m = max(1, len(subs))
+    js = (ctypes.c_int64 * m)(*[j for _, j in subs])
+    ks = (ctypes.c_int64 * m)(*[k for k, _ in subs])
+    codes, layouts, info = (ctypes.c_int64 * m)(), (ctypes.c_int64 * m)(), (ctypes.c_int64 * 2)()
+    check(fn(js, ks, len(subs), codes, layouts, info), "henjou_net_local_plan")
+    return list(codes)[:len(subs)], list(layouts)[:info[1]], info[0]
+
+
 def net_local(src, subs, *, dst=None):
     """The substages `subs` [(k, j), ...] (each j < TILE, at most
     MAX_LIST) of the state `src`, in order, into `dst` (new when None; may
-    be `src`). Each TILE-element tile stays in shared memory, every plane,
-    for the whole list. Returns dst."""
+    be `src`). Each tile of `plan_local` runs the whole list on its keys
+    as (key, source) words, eight per thread, then gathers every plane
+    once through the sources. Returns dst."""
     out, subs = _check_local(src, dst, subs)
     if _device(src) == "cpu":
         return net_local_plain(src, subs, dst=out)
+    _check_aligned(src, out)
     p, n = src.shape
     js = (ctypes.c_int64 * max(1, len(subs)))(*[j for _, j in subs])
     ks = (ctypes.c_int64 * max(1, len(subs)))(*[k for k, _ in subs])

@@ -425,3 +425,156 @@ def test_tool_main_runs_every_row_on_the_cpu(capsys, tool, argv, sizes, names):
         line = next(ln for ln in out.splitlines() if ln.startswith(name))
         assert "ok=False" not in line and " run " in line
     assert out.count("ok=True") == {t1: 4, t2: 1, t3: 3, t4: 0}[tool]
+
+
+# ---------------- net_local and net_substage, modelled on the CPU ----------------
+
+
+def _settle(lo, j, k, x, y):
+    """keyed_network.cuh `settle_pair<false>` on int64 words key << 32 |
+    source: the pair (lo, lo | j) holding x and y, key halves compared."""
+    up = (lo & k) == 0
+    kx, ky = x >> 32, y >> 32
+    swap_lo = torch.where(up, kx > ky, ky > kx)
+    swap_hi = ky > kx if k == j else swap_lo
+    return torch.where(swap_lo, y, x), torch.where(swap_hi, x, y)
+
+
+_WORDS = 1 << bn.LOCAL_REG_BITS
+
+
+def _local_offsets(layout, threads):
+    """[threads, words] tile offsets of each thread's words under a
+    layout (the slot's register bits, lane bits 0-4, warp bits)."""
+    t = torch.arange(threads)[:, None]
+    slot = torch.arange(_WORDS)[None, :]
+    lane, warp = t & 31, t >> 5
+    e = torch.zeros(threads, _WORDS, dtype=torch.long)
+    for f, b in enumerate(layout):
+        src = slot >> f if f < bn.LOCAL_REG_BITS else (
+            lane >> (f - bn.LOCAL_REG_BITS) if f < bn.LOCAL_MIN_BITS else warp >> (f - bn.LOCAL_MIN_BITS))
+        e = e | ((src & 1) << b)
+    return e
+
+
+def _local_model(state, subs):
+    """csrc/bitonic_net.cu `local_list` in plain torch, in its order of
+    work: on each tile of `plan_local`, each thread's words loaded
+    under layout 0; per substage either register pairs settling in place
+    or one exchange with the lane whose bit is j, the pairs checked to be
+    (i, i ^ j); a new layout through the tile in element order; then the
+    keys from the words and every plane gathered through the sources."""
+    plan = bn.plan_local(subs)
+    p, n = state.shape
+    tile = 1 << plan.bits
+    threads = tile // _WORDS
+    assert tile >= 2 * max([j for _, j in subs], default=1) and tile <= bn.TILE
+    base = torch.arange(0, n, tile)[:, None, None]
+    lane = torch.arange(threads) & 31
+    e = _local_offsets(plan.layouts[0], threads)
+    assert torch.equal(e.reshape(-1).sort().values, torch.arange(tile))
+    w = (state[0].long()[base + e] << 32) | e
+    flat = torch.empty(n // tile, tile, dtype=torch.long)
+    cur = 0
+    for (k, j), (li, kind, f) in zip(subs, plan.ops):
+        if li != cur:  # a round through shared memory
+            flat[:, e] = w
+            cur, e = li, _local_offsets(plan.layouts[li], threads)
+            w = flat[:, e]
+        if kind == "reg":
+            lo = [s for s in range(_WORDS) if not (s >> f) & 1]
+            hi = [s | (1 << f) for s in lo]
+            assert torch.equal(e[:, hi], e[:, lo] ^ j) and not (e[:, lo] & j).any()
+            w[..., lo], w[..., hi] = _settle(base + e[:, lo], j, k, w[..., lo], w[..., hi])
+        else:
+            other = torch.arange(threads) ^ (1 << f)
+            assert torch.equal(e[other], e ^ j)
+            pw = w[:, other]
+            upper = ((lane >> f) & 1).bool()[None, :, None]
+            x, y = torch.where(upper, pw, w), torch.where(upper, w, pw)
+            nx, ny = _settle(base + (e & ~j), j, k, x, y)
+            w = torch.where(upper, ny, nx)
+    flat[:, e] = w
+    src = ((flat & 0xFFFFFFFF) + base[:, :, 0]).reshape(-1)
+    return torch.cat([(flat >> 32).to(torch.int32).reshape(1, n), state[1:, src]])
+
+
+def _local_lists(n):
+    subs = bn.substages(n)
+    return {
+        "row C": [(32, 16)] * 136,
+        "k <= 1024": [kj for kj in subs if kj[0] <= 1024],
+        "mixed j < 1024": [kj for kj in bn.MIXED_SUBS if kj[1] < 1024],
+        "k above the tile": [(n, j) for j in (128, 64, 32, 16, 8, 4, 2, 1)] + [(n // 2, 64)],
+    }
+
+
+@pytest.mark.parametrize("which", ["row C", "k <= 1024", "mixed j < 1024", "k above the tile"])
+@pytest.mark.parametrize("p", [1, 3, 17])
+@pytest.mark.parametrize("n", [1024, 4096, 1 << 16])
+def test_local_model_equals_net_local_plain(n, p, which):
+    """The new net_local's order of work equals the plain list on every
+    plane, for keys with ties and for negative keys with both extremes."""
+    subs = _local_lists(n)[which]
+    rng = np.random.default_rng(90 + p)
+    for keys in ("ties", "negative"):
+        st = rng.integers(-2**31, 2**31 - 1, (p, n)).astype(np.int32)
+        st[0] = _keys(keys, n, rng)
+        state = torch.from_numpy(st)
+        assert torch.equal(_local_model(state, subs), bn.net_local_plain(state, subs)), keys
+
+
+def test_local_plan_layouts():
+    """Row C runs in one layout with j = 16 a register bit on 256-element
+    tiles (256 of them at n = 65,536); the k <= 1024 list and the host
+    walk's lists change layout a few times on 1024-element tiles."""
+    lists = _local_lists(1 << 16)
+    c = bn.plan_local(lists["row C"])
+    assert c.bits == bn.LOCAL_MIN_BITS == 8 and len(c.layouts) == 1
+    assert 4 in c.layouts[0][:bn.LOCAL_REG_BITS]
+    assert all(kind == "reg" for _, kind, _ in c.ops)
+    small = bn.plan_local(lists["k <= 1024"])
+    assert small.bits == 10 and len(small.layouts) == 4
+    walk = [kj for kj in bn.substages(1 << 16) if kj[0] == 1 << 16 and kj[1] < 1024]
+    assert len(bn.plan_local(walk).layouts) == 2
+    assert bn.plan_local([]).layouts == (tuple(range(bn.LOCAL_MIN_BITS)),)
+    codes, layouts = bn.local_plan_codes(lists["k <= 1024"])
+    assert sum(1 for c in codes if c & bn.LOCAL_NEW_LAYOUT) == len(layouts) == 4
+
+
+def _substage_model(state, k, j):
+    """csrc/bitonic_net.cu `exchange` in plain torch: thread q owns the
+    16-byte-aligned runs of four at b0 and b1 = b0 + max(j, 4), which hold
+    pairs 4q .. 4q + 3 (for j in {1, 2} the chunk 8q .. 8q + 7), slot m
+    paired with slot m ^ min(j, 4)."""
+    n = state.shape[1]
+    q = torch.arange(n // 8)[:, None]
+    jj = max(j, 4)
+    b0 = 8 * q - ((4 * q) & (jj - 1))
+    m = torch.arange(8)[None, :]
+    idx = torch.where(m < 4, b0, b0 + jj) + (m & 3)
+    assert torch.equal(idx.reshape(-1).sort().values, torch.arange(n))
+    assert not (b0 % 4).any() and not ((b0 + jj) % 4).any()
+    perm = [s ^ min(j, 4) for s in range(8)]
+    assert torch.equal(idx[:, perm], idx ^ j)
+    key = state[0][idx]
+    take_min = ((idx & j) == 0) == ((idx & k) == 0)
+    swap = torch.where(take_min, key > key[:, perm], key < key[:, perm])
+    out = torch.empty_like(state)
+    for p in range(state.shape[0]):
+        v = state[p][idx]
+        out[p][idx] = torch.where(swap, v[:, perm], v)
+    return out
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_substage_model_equals_net_substage_plain(n):
+    """The vector mapping of net_substage, four pairs per thread, for
+    every j from 1 to n / 2 with k above, equal to and below j."""
+    st = _input(3, n, seed=91)
+    st[0, ::7] = np.iinfo(np.int32).min
+    state = torch.from_numpy(st)
+    for lj in range(n.bit_length() - 1):
+        j = 1 << lj
+        for k in sorted({min(2 * j, n), j, n, max(1, j // 4)}):
+            assert torch.equal(_substage_model(state, k, j), bn.net_substage_plain(state, k, j)), (k, j)

@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain versions, on the card: 109 cases,
+"""The CUDA kernels against their plain versions, on the card: 150 cases,
 52 of them the cluster walk of the binned, flat, two-level and
 matrix-form kernels, 7 the denoiser's tensor ops on CUDA against the CPU.
 
@@ -253,6 +253,89 @@ def test_net_local_kernel_matches_plain(net_state):
         torch.cuda.synchronize()
         assert bn.LAUNCHES["net_local"] == before + 1
         assert torch.equal(out, bn.net_local_plain(net_state, lst))
+
+
+def _net_input(cuda, p, n, seed):
+    """[p, n] int32 on the card: keys with ties in [0, 64) and, in a
+    quarter of the elements, both int32 extremes; planes over the range."""
+    rng = np.random.default_rng(seed)
+    st = rng.integers(-2**31, 2**31 - 1, (p, n)).astype(np.int32)
+    st[0] = rng.integers(0, 64, n)
+    st[0, ::8] = -2**31
+    st[0, 1::8] = 2**31 - 1
+    return torch.from_numpy(st).to(cuda)
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("p", [1, 2, 5, 10, 17])
+@pytest.mark.parametrize("n", [1024, 1 << 18])
+def test_net_substage_kernel_every_j(cuda, n, p, inplace):
+    """Every log2 j with k above, equal to and at n, in every mode, stacked
+    (in place or not) and per plane (not in place), and the guard chains:
+    bit-equal to the plain version, one launch per call."""
+    from henjou_torch.accel import bitonic_net as bn
+
+    state = _net_input(cuda, p, n, seed=p)
+    forms = [(False, "dynamic"), (False, "static_j")]
+    if not inplace:
+        forms += [(True, "dynamic"), (True, "static_j")]
+    for lj in range(n.bit_length() - 1):
+        j = 1 << lj
+        for k in sorted({min(2 * j, n), j, n}):
+            cases = [dict(per_plane=pp, mode=m) for pp, m in forms
+                     if m != "static_j" or j <= bn.MAX_STATIC_J]
+            if (k, j) in bn.STATIC_PAIRS:
+                cases += [dict(per_plane=pp, mode="static") for pp, _ in forms[::2]]
+                if (k, j) == (32, 16):
+                    cases += [dict(mode="static", guards=g, lj=0) for g in bn.GUARDS]
+            for kw in cases:
+                ref = bn.net_substage_plain(state, k, j, **kw)
+                src = state.clone() if inplace else state
+                before = bn.LAUNCHES["net_substage"]
+                out = bn.net_substage(src, k, j, dst=src if inplace else None, **kw)
+                torch.cuda.synchronize()
+                assert bn.LAUNCHES["net_substage"] == before + 1
+                assert torch.equal(out, ref), (k, j, kw)
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("p", [1, 2, 5, 10, 17])
+@pytest.mark.parametrize("n", [1024, 1 << 18])
+def test_net_local_kernel_lists(cuda, n, p, inplace):
+    """Row C's 136 x (32, 16), the k <= 1024 list, MIXED_SUBS's j < 1024
+    substages and a list whose k exceeds the tile, bit-equal to the plain
+    version, one launch per call; the kernel's plan equals plan_local's."""
+    from henjou_torch.accel import bitonic_net as bn
+
+    state = _net_input(cuda, p, n, seed=20 + p)
+    subs = bn.substages(n)
+    lists = ([(32, 16)] * 136, [kj for kj in subs if kj[0] <= 1024],
+             [kj for kj in bn.MIXED_SUBS if kj[1] < 1024],
+             [(n, j) for j in (128, 64, 32, 16, 8, 4, 2, 1)] + [(n // 2, 64)])
+    for lst in lists:
+        codes, layouts = bn.local_plan_codes(lst)
+        assert bn.kernel_local_plan(lst) == (codes, layouts, bn.plan_local(lst).bits)
+        ref = bn.net_local_plain(state, lst)
+        src = state.clone() if inplace else state
+        before = bn.LAUNCHES["net_local"]
+        out = bn.net_local(src, lst, dst=src if inplace else None)
+        torch.cuda.synchronize()
+        assert bn.LAUNCHES["net_local"] == before + 1
+        assert torch.equal(out, ref)
+
+
+def test_net_kernels_reject_a_misaligned_state(cuda):
+    from henjou_torch.accel import bitonic_net as bn
+
+    flat = torch.zeros(3 * 1024 + 1, dtype=torch.int32, device=cuda)
+    state = flat[1:].view(3, 1024)
+    assert state.is_contiguous() and state.data_ptr() % 16
+    with pytest.raises(ValueError):
+        bn.net_substage(state, 32, 16)
+    with pytest.raises(ValueError):
+        bn.net_local(state, [(32, 16)])
+    with pytest.raises(ValueError):
+        bn.net_substage(flat[:3072].view(3, 1024), 32, 16, dst=state)
 
 
 @pytest.mark.parametrize("inplace", [False, True])
