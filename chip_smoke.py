@@ -10,10 +10,12 @@ prints no result. Phases, each of which raises on failure:
 3. the bitonic sort (one cooperative launch of the keyed network engine,
    ``csrc/keyed_network.cuh``) against its plain version at n = 1024 and
    65536 with 10 columns (the key, [n, 3] origin and direction rows, two
-   planes and the lane id), and at 2^18 with keys over the whole int32
-   range: keys and planes bit-equal, every (key, payload) pair kept, and
-   the inverse sort restoring the input exactly; the sort and the inverse
-   timed by CUDA events and as CUDA graph replays;
+   planes and the lane id), at 2^18 with keys over the whole int32
+   range, and at 131,072 with the masked engine's 9 columns (a scalar
+   tmin; 24-bit keys and dead lanes): keys and planes bit-equal, every
+   (key, payload) pair kept, and the inverse sort restoring the input
+   exactly; the sort and the inverse timed by CUDA events and as CUDA
+   graph replays (`masked_ms` at 131,072);
 4. the binned intersector kernel against its plain version, closest and
    any hit, on 65536 rays (half camera rays, half incoherent random rays;
    `henjou_torch.tools.time_intersectors.test_rays`) on the sphere
@@ -87,17 +89,42 @@ prints no result. Phases, each of which raises on failure:
     at half size, guided by the full-size ones) and ``upscale2x`` on CUDA
     and CPU tensors, within the CPU parity tests' rtol 1e-4, atol 1e-5, and
     each one's ms per call at 1280x720 by CUDA events; it runs after
-    phase 10.
+    phase 10;
+16. the OBJ option file as shipped (``scenes/cornelbox_obj_option.json``:
+    256x256, 64 spp, MIS, 540 triangles) through the CLI: the PNG
+    decoded, the light patch bright, the set-up seconds; then the C HDR
+    decode (``henjou_torch/native``) byte-equal to the Python loop on the
+    contest's sky, both timed;
+17. the gallery at 512x288 with ``engine="masked"`` against
+    ``engine="wavefront", mis_mode="ref"``: MIS at 2 spp, pathtrace and
+    nee at 1; per-pixel RMSE of the means at most 1e-5 (the same streams
+    through the same kernels), trace counts equal, spp/s and Mrays/s of
+    both;
+18. the contest option file with only its engine set to masked, 1 spp:
+    frames 0 and 1 at 1280x720 in DenoiseTemporal, whose blend-only branch
+    frame 1 takes (the masked film has no variance AOV); 131,072-ray sorts;
+19. the contest scene with a keyframed translation on its mesh instance,
+    frames 0-2 at 1280x720, 1 spp, wavefront engine: the host pack runs
+    at most once, then the cluster order is planned and each new
+    transform set refreshes the pack on the device; each refreshed pack's
+    boxes equal, and its rows within 64 ulps of their scale of, the same
+    refresh by torch ops on the CPU; the binned kernel on it against its
+    plain version within phase 4's limits; the refresh timed by CUDA
+    events beside the host pack's seconds.
 
 Launch counters are zeroed just before, and read just after, each path
 that drives kernels through a user's entry point: phase 7's kernel
 renders (the cluster intersectors, which no renderer routes), phases 9,
 14 and 10 (the main path: bitonic and binned, the canaries and the
-finalize probes included) and phases 11-12 (the scale path: bitonic,
-binned and the two-level kernel). Each kernel of a path must have grown
-there. The kernels line reports the bitonic and binned counts of phases
-9, 14 and 10, the two-level kernel's of phases 11-12 and
-the flat and matrix kernels' of phase 7, and the network kernels' of
+finalize probes included), phases 11-12 (the scale path: bitonic,
+binned and the two-level kernel), and each of this slice's paths on its
+own: phase 16 (OBJ), each masked render of phase 17 (not its wavefront
+twins), phase 18 (masked at contest scale) and phase 19's renders (not
+its comparisons). Each kernel of a path must have grown there. The
+kernels line reports, as `launches`, the bitonic and binned counts of
+the main path, with each of phases 16-19's under `launches_by_path`; the
+two-level kernel's of phases 11-12, the flat and matrix kernels' of
+phase 7, and the network kernels' of
 phase 13 (its tools' rows are that path). The line before the last is the
 card's name and power limit; before that, one JSON line with each
 kernel's launches, error against its plain version, times (`ms` on the
@@ -114,6 +141,7 @@ same function, where there is one. The last line is the result JSON.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -130,8 +158,16 @@ TOL_T_REL = 1e-5
 TOL_FLIPS = 1e-4
 TOL_UV = 1e-6  # absolute, where both hit the same triangle
 TOL_ENGINE_RMSE = 5e-3
+# masked engine against the wavefront two-sample form on the gallery: the
+# same CMJ streams through the same kernels, whose results do not depend on
+# the other rays; runs AW-AY read 6.7e-9 to 3.3e-8 RMSE (PERF.md)
+TOL_MASKED_RMSE = 1e-5
 GALLERY = "scenes/sphere_gallery_option.json"
 CONTEST = "scenes/rtcamp_720_option.json"
+OBJ = "scenes/cornelbox_obj_option.json"
+# refreshed pack rows on CUDA against the CPU: ulps of each value's scale
+# (tests/test_torch_anim_accel.py's limit against the JAX refresh)
+ROW_ULPS = 64
 GALLERY_SIZE = (512, 288)  # the gallery option file's width and height
 # binned light query against dense Moller-Trumbore: two formulas, as in
 # tests/test_torch_accel.py's binned-vs-brute-force limit
@@ -208,20 +244,31 @@ def argsort_gather(key, *planes):
 def phase_sort(dev, results):
     from henjou_torch.accel import bitonic
 
+    from henjou_torch.accel.sorting import DEAD_KEY
+
     rng = np.random.default_rng(1)
     worst = 0.0
-    for n, signed in ((1024, False), (1 << 18, True), (65536, False)):
+    for n, kind in ((1024, "ties"), (1 << 18, "signed"), (1 << 17, "masked"), (65536, "ties")):
         # the renderer's forward sort of a trace with a per-ray tmin: the
         # key, origin and direction rows [n, 3], tmin, tmax and the lane
         # id (10 columns); here the last plane but one holds random bits.
         # Keys with many ties (a sort key has 24 bits over 65536 rays), or
-        # over the whole int32 range.
-        lo, hi = (-2**31, 2**31 - 1) if signed else (0, n // 4)
-        key = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+        # over the whole int32 range. "masked": the masked engine's trace
+        # of a 131,072-ray tile, a scalar tmin, so the key, origin and
+        # direction rows, tmax and the lane id (9 columns), 24-bit keys
+        # with dead lanes (DEAD_KEY, tmax 0).
+        lo, hi = {"signed": (-2**31, 2**31 - 1), "ties": (0, n // 4), "masked": (0, 1 << 24)}[kind]
+        key = rng.integers(lo, hi, n).astype(np.int32)
         planes = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
                   for _ in range(2)]
-        planes.append(torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev))
-        planes.append(torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)).to(dev))
+        if kind == "masked":
+            dead = rng.random(n) < 0.3
+            key[dead] = DEAD_KEY
+            planes.append(torch.from_numpy(np.where(dead, 0.0, 1e16).astype(np.float32)).to(dev))
+        else:
+            planes.append(torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev))
+            planes.append(torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)).to(dev))
+        key = torch.from_numpy(key).to(dev)
         lane = torch.arange(n, dtype=torch.int32, device=dev)
         out = bitonic.bitonic_sort(key, *planes, lane)
         torch.cuda.synchronize()
@@ -246,8 +293,16 @@ def phase_sort(dev, results):
         for p_in, p_back in zip(planes, inv):
             if not torch.equal(p_in.view(torch.int32), p_back.view(torch.int32)):
                 raise AssertionError(f"sort n={n}: the inverse did not restore the input")
-        log(f"[sort] n={n} 10 columns{', signed keys' if signed else ''}: keys, pairs and "
-            f"inverse exact")
+        n_cols = sum(1 if p.dim() == 1 else p.shape[1] for p in (key, *planes, lane))
+        log(f"[sort] n={n} {n_cols} columns, {kind} keys: keys, pairs and inverse exact")
+        if kind == "masked":
+            sort_fn = functools.partial(bitonic.bitonic_sort, key, *planes, lane)
+            masked = dict(masked_ms=cuda_ms(sort_fn, 20), masked_graph_ms=graph_ms(sort_fn),
+                          masked_library_ms=cuda_ms(
+                              functools.partial(argsort_gather, key, *planes, lane), 20))
+            log(f"[sort] n={n} x{n_cols} columns (the masked engine's trace): kernel "
+                f"{masked['masked_ms']:.4f} ms, {_fmt_ms(masked['masked_graph_ms'])} as a CUDA "
+                f"graph, argsort+gather {masked['masked_library_ms']:.4f} ms (CUDA events)")
     # times at the renderer's shape: 65536 rays, the 10 columns above
     # forward, and 4 planes (t, prim, u, v) back
     ms = cuda_ms(lambda: bitonic.bitonic_sort(key, *planes, lane), 20)
@@ -270,7 +325,8 @@ def phase_sort(dev, results):
     results["bitonic"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                               inverse_ms=un_ms, inverse_plain_ms=un_plain,
-                              graph_ms=graphs["kernel"], inverse_graph_ms=graphs["inverse"])
+                              graph_ms=graphs["kernel"], inverse_graph_ms=graphs["inverse"],
+                              **masked)
 
 
 def _bit_equal(name, k, p):
@@ -662,19 +718,27 @@ def phase_gallery(tmp):
         f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s; CLI wall {wall:.2f} s")
 
 
-def phase_contest(dev, tmp, mis_mode="single"):
-    """Phase 10 (the option file as shipped, two frames) or, with
-    ``mis_mode="ref"``, phase 12 (frame 0 in Default mode). Returns frame
+def phase_contest(dev, tmp, mis_mode="single", engine="auto"):
+    """Phase 10 (the option file as shipped, two frames), with
+    ``mis_mode="ref"`` phase 12 (frame 0 in Default mode), or with
+    ``engine="masked"`` phase 18 (the option file with only its engine set
+    to the masked one, two frames, 1 spp each: the masked film has no variance,
+    so frame 1 takes DenoiseTemporal's blend-only branch). Returns frame
     0's AOVs."""
     from henjou_torch.accel import pallas_binned
     from henjou_torch.runtime.options import RenderMode
     from henjou_torch.runtime.renderer import Renderer
 
     shipped = mis_mode == "single"
+    masked = engine == "masked"
     t0 = time.monotonic()
     r = Renderer(device=dev)
     r.load_render_option(CONTEST)
-    over = dict(max_spp=4, mis_mode=mis_mode, image_name=os.path.join(tmp, f"contest_{mis_mode}"))
+    over = dict(max_spp=4, mis_mode=mis_mode,
+                image_name=os.path.join(tmp, f"contest_{engine}_{mis_mode}"))
+    if masked:
+        # 1 spp a frame keeps the script near 5 min
+        over.update(engine="masked", max_spp=1)
     if not shipped:
         # 2 spp keeps the script inside ~5 min
         over.update(render_mode=RenderMode.DEFAULT, end_frame=1, max_spp=2)
@@ -701,7 +765,8 @@ def phase_contest(dev, tmp, mis_mode="single"):
     for path in written:
         _decode_png(path, 1280, 720)
     s = r.setup_stats
-    log(f"[contest mis_mode={mis_mode}] {r.option.render_mode.value}, {len(written)} frame(s) "
+    tag = f"[contest {engine} mis_mode={mis_mode}]"
+    log(f"{tag} {r.option.render_mode.value}, {len(written)} frame(s) "
         f"{r.option.image_width}x{r.option.image_height}: wall {wall:.2f} s; "
         f"load {s['load_s']:.2f} s, "
         f"device scene {s['device_scene_s']:.2f} s")
@@ -710,14 +775,19 @@ def phase_contest(dev, tmp, mis_mode="single"):
             raise AssertionError(f"[contest] frame {fr['frame']}: film or image not finite")
         if shipped and probe_launches == 0:
             raise AssertionError(f"[contest] frame {fr['frame']}: no binned launch in _finalize")
-        log(f"[contest mis_mode={mis_mode}] frame {fr['frame']}: {fr['spp']} spp, "
+        log(f"{tag} frame {fr['frame']}: {fr['spp']} spp, "
             f"flatten+pack {fr['build_s']:.2f} s, render {fr['render_s']:.2f} s "
             f"({fr['spp'] / fr['render_s']:.3f} spp/s, "
             f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s), "
             f"finalize {fr['finalize_s']:.3f} s ({probe_launches} binned launches), "
             f"PNG {fr['finalize_png_s'] - fr['finalize_s']:.3f} s, total {fr['total_s']:.2f} s")
-    if shipped and (r._temporal_raw is None or r._temporal_prev_frame != 1
-                    or not float(r._temporal_raw[2].max()) > float(seen[1][0]["count"].max())):
+    if masked:
+        if "variance" in seen[0][0] or r._temporal_raw is not None or r._temporal_prev_frame != 1:
+            raise AssertionError("[contest masked] frame 1 did not take the blend-only branch")
+        if [fr["spp"] for fr in r.frame_stats] != [1, 1]:
+            raise AssertionError(f"[contest masked] spp {[fr['spp'] for fr in r.frame_stats]}")
+    elif shipped and (r._temporal_raw is None or r._temporal_prev_frame != 1
+                      or not float(r._temporal_raw[2].max()) > float(seen[1][0]["count"].max())):
         raise AssertionError("[contest] frame 1 did not merge frame 0's history")
     return seen[0][0]
 
@@ -817,6 +887,206 @@ def phase_scale(dev):
             raise AssertionError(f"[scale] {name}: a kernel was not launched: {row['launches']}")
     log(f"[scale] both rows in {time.monotonic() - t0:.2f} s")
     return out
+
+
+def phase_obj(tmp):
+    """Phase 16: the OBJ option file as shipped through the CLI; then the C
+    HDR decode against the Python loop on the contest's sky."""
+    from henjou_torch import native, render
+    from henjou_torch.post.png import read_png
+    from henjou_torch.texture.hdr import decode_rgbe_plain
+
+    out = os.path.join(tmp, "cornell_obj")
+    stats_path = out + "_stats.json"
+    t0 = time.monotonic()
+    if render.main([OBJ, "--out", out, "--stats", stats_path]) != 0:
+        raise AssertionError("[obj] render.main failed")
+    wall = time.monotonic() - t0
+    img = read_png(out + "_000.png")
+    if img.shape[:2] != (256, 256):
+        raise AssertionError(f"[obj] PNG {img.shape}")
+    # the ceiling light, seen from below at the top centre, saturates
+    if int(img[:64, 96:160].max()) < 250:
+        raise AssertionError(f"[obj] the light patch is not bright: {int(img[:64, 96:160].max())}")
+    with open(stats_path) as f:
+        stats = json.load(f)
+    fr, su = stats["frames"][0], stats["setup"]
+    if not fr["film_finite"]:
+        raise AssertionError("[obj] film not finite")
+    log(f"[obj] {OBJ} as shipped: {fr['film_shape'][1]}x{fr['film_shape'][0]}, {fr['spp']} spp "
+        f"in {fr['render_s']:.3f} s ({fr['spp'] / fr['render_s']:.3f} spp/s, "
+        f"{fr['n_traces'] / fr['render_s'] / 1e6:.3f} Mrays/s); set-up: canary "
+        f"{su['canary_s']:.2f} s, load {su['load_s']:.3f} s, device scene "
+        f"{su['device_scene_s']:.3f} s; light patch max {int(img[:64, 96:160].max())}; "
+        f"CLI wall {wall:.2f} s")
+    data = open("scenes/rtcamp_sky.hdr", "rb").read()
+    head = data.index(b"\n\n") + 2
+    eol = data.index(b"\n", head)
+    _, h, _, w = data[head:eol].split()
+    scan, w, h = data[eol + 1:], int(w), int(h)
+    t0 = time.perf_counter()
+    got = native.hdr_decode(scan, w, h)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = decode_rgbe_plain(scan, w, h)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    if got.tobytes() != want.tobytes():
+        raise AssertionError("[native] the C HDR decode differs from the Python loop")
+    log(f"[native] scenes/rtcamp_sky.hdr {w}x{h}: C {c_ms:.3f} ms, Python {py_ms:.3f} ms, "
+        f"byte-equal ({native.library_path().name})")
+
+
+def phase_masked_gallery(dev, zero, counts):
+    """Phase 17: the gallery at 512x288 with the masked engine against the
+    wavefront engine's two-sample form: MIS at 2 spp, pathtrace and nee at
+    1. The same CMJ streams: per-pixel RMSE of the means at most
+    TOL_MASKED_RMSE, trace counts equal. The launch counts are zeroed just
+    before, and read just after, each masked render; both kernels must grow
+    in every one. Returns their sum over the masked renders."""
+    from henjou_torch.runtime.renderer import Renderer
+
+    r = Renderer(device=dev)
+    r.load_render_option(GALLERY)
+    r._load_scene_from_option()
+    launches = {}
+    # the two engines draw the same streams, so more spp would not tighten
+    # the comparison; few keep the script near 5 min
+    for integrator, spp in (("mis", 2), ("pathtrace", 1), ("nee", 1)):
+        out = {}
+        for engine in ("masked", "wavefront"):
+            r.option = dataclasses.replace(r.option, engine=engine, mis_mode="ref",
+                                           integrator=integrator, max_spp=spp)
+            r.integrator = integrator
+            zero()
+            out[engine] = r.render_frame(0)
+            torch.cuda.synchronize()
+            if engine == "masked":
+                got = counts()
+                if min(got.values()) == 0:
+                    raise AssertionError(f"[masked gallery] {integrator}: a kernel was not "
+                                         f"launched: {got}")
+                launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+            o = out[engine]
+            log(f"[masked gallery] {integrator} {engine}: {o['spp_done']} spp in "
+                f"{o['render_s']:.3f} s, {o['spp_done'] / o['render_s']:.3f} spp/s, "
+                f"{o['n_traces']} traces, {o['n_traces'] / o['render_s'] / 1e6:.3f} Mrays/s")
+        a, b = out["masked"]["color"], out["wavefront"]["color"]
+        rmse = float(np.sqrt(((a - b) ** 2).mean()))
+        if not np.isfinite(a).all():
+            raise AssertionError(f"[masked gallery] {integrator}: film not finite")
+        if out["masked"]["n_traces"] != out["wavefront"]["n_traces"]:
+            raise AssertionError(f"[masked gallery] {integrator}: traces "
+                                 f"{out['masked']['n_traces']} != {out['wavefront']['n_traces']}")
+        if rmse > TOL_MASKED_RMSE:
+            raise AssertionError(f"[masked gallery] {integrator}: RMSE {rmse} > {TOL_MASKED_RMSE}")
+        log(f"[masked gallery] {integrator}: masked vs wavefront ref RMSE {rmse:.3g} "
+            f"(limit {TOL_MASKED_RMSE:g}; mean {float(a.mean()):.4f}), traces equal")
+    return launches
+
+
+def _row_scale(tv, order):
+    """Each refreshed row value's scale, in float64 (tests/
+    test_torch_anim_accel.py): |e1||e2| for the normal n, |n||v0| for d;
+    g1 and g2 as |e2|/|n| and |e1|/|n| times the condition |e1||e2|/|n|,
+    h as that times |v0|."""
+    v = np.where((order >= 0)[:, None, None], tv[np.maximum(order, 0)], 0.0).astype(np.float64)
+    e1, e2, v0 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0], v[:, 0]
+    norm = functools.partial(np.linalg.norm, axis=1)
+    ln = np.maximum(norm(np.cross(e1, e2)), 1e-30)
+    cond = norm(e1) * norm(e2) / ln
+    s1, s2 = norm(e2) / ln * cond, norm(e1) / ln * cond
+    return np.stack([norm(e1) * norm(e2)] * 3 + [ln * norm(v0)] + [s1] * 3 + [s1 * norm(v0)]
+                    + [s2] * 3 + [s2 * norm(v0)], axis=1)
+
+
+def phase_anim(dev, results, zero, counts):
+    """Phase 19: the contest scene with a keyframed translation on its mesh
+    instance, frames 0-2 at 1280x720, 1 spp, wavefront engine. The host
+    pack runs at most once (frame 0), frame 1 plans the order and every
+    later set refreshes on the device. Each refreshed pack against the same
+    refresh by torch ops on the CPU (boxes equal, rows within ROW_ULPS ulps
+    of their scale), the binned kernel on it against its plain version
+    within phase 4's limits. The launch counts are zeroed just before the
+    renders and read just after them; returns them."""
+    from henjou_torch.accel import pallas_binned as pb
+    from henjou_torch.runtime.options import RenderMode
+    from henjou_torch.runtime.renderer import Renderer
+    from henjou_torch.scene import animation
+    from henjou_torch.tools.time_intersectors import test_rays
+
+    r = Renderer(device=dev)
+    r.load_render_option(CONTEST)
+    r._load_scene_from_option()
+    a = animation.static_animation()
+    a.translation.keys = [0.0, 1.0]
+    a.translation.values = [[0.0, 0.0, 0.0], [0.5, 0.0, 0.0]]
+    r.scene.animations.append(a)
+    for inst in r.scene.instances:
+        inst.animation_id = len(r.scene.animations) - 1
+    r.option = dataclasses.replace(r.option, max_spp=1, render_mode=RenderMode.DEFAULT,
+                                   engine="wavefront", end_frame=3)
+    packs = []
+    real_pack = pb.pack_binned_np
+
+    def timed_pack(*args, **kw):
+        t0 = time.monotonic()
+        out = real_pack(*args, **kw)
+        torch.cuda.synchronize()
+        packs.append(time.monotonic() - t0)
+        return out
+
+    pb.pack_binned_np = timed_pack
+    zero()
+    try:
+        for f in range(3):
+            out = r.render_frame(f)
+            if not np.isfinite(out["color"]).all():
+                raise AssertionError(f"[anim] frame {f}: film not finite")
+            log(f"[anim] frame {f}: {out['spp_done']} spp, flatten+accel {out['build_s']:.3f} s, "
+                f"render {out['render_s']:.3f} s ({out['spp_done'] / out['render_s']:.3f} spp/s, "
+                f"{out['n_traces'] / out['render_s'] / 1e6:.3f} Mrays/s)")
+    finally:
+        pb.pack_binned_np = real_pack
+    launches = counts()
+    if len(packs) > 1 or r._accel_plan is None:
+        raise AssertionError(f"[anim] {len(packs)} host packs, plan {r._accel_plan is not None}")
+    order, c, group, g = r._accel_plan
+    order_np = order.cpu().numpy()
+    rng = np.random.default_rng(6)
+    for f in (1, 2):
+        fs, accel, cam = r.frame_scene(f)
+        want = pb.build_binned_from_order(fs.tri_verts.cpu(), order_np, c, group, g)
+        for name in ("aabb", "gaabb", "scene_lo", "scene_hi"):
+            if not torch.equal(getattr(accel, name).cpu(), getattr(want, name)):
+                raise AssertionError(f"[anim] frame {f}: refreshed {name} differs from the CPU")
+        k_rows = accel.rows.cpu().numpy().reshape(-1, 16, pb.K).transpose(0, 2, 1).reshape(-1, 16)
+        w_rows = want.rows.numpy().reshape(-1, 16, pb.K).transpose(0, 2, 1).reshape(-1, 16)
+        if not np.array_equal(k_rows[:, 12:].view(np.int32), w_rows[:, 12:].view(np.int32)):
+            raise AssertionError(f"[anim] frame {f}: rows 12-15 differ from the CPU")
+        scale = _row_scale(fs.tri_verts.cpu().numpy(), order_np) * np.finfo(np.float32).eps
+        ulps = np.abs(k_rows[:, :12].astype(np.float64) - w_rows[:, :12]) / np.maximum(scale, 1e-300)
+        if ulps.max() > ROW_ULPS:
+            raise AssertionError(f"[anim] frame {f}: rows differ by {ulps.max():.3g} ulps of "
+                                 f"their scale (limit {ROW_ULPS})")
+        bit_equal = np.array_equal(k_rows.view(np.int32), w_rows.view(np.int32))
+        log(f"[anim] frame {f}: refreshed pack vs CPU torch ops: boxes equal, rows "
+            f"{'bit-equal' if bit_equal else f'within {ulps.max():.3g} ulps of their scale'}")
+        o, d = test_rays(r, accel, cam, dev, rng)
+        for any_hit in (False, True):
+            _, res = _trace_vs_plain(f"binned refreshed frame {f} {'any' if any_hit else 'closest'}",
+                                     pb, "binned", pb.intersect_binned, pb.intersect_binned_plain,
+                                     accel, fs.tri_verts, o, d, any_hit, 5)
+            _record(results, "binned", f"anim_{f}_{any_hit}", *res)
+    refresh_ms = cuda_ms(lambda: pb.build_binned_from_order(fs.tri_verts, order, c, group, g), 10)
+    offs = r.device_scene.prim_offsets.cpu().numpy()
+    t0 = time.monotonic()
+    pb.plan_binned_order(fs.tri_verts.cpu().numpy(),
+                         list(zip(offs.tolist(), np.diff(np.append(offs, fs.tri_verts.shape[0])).tolist())))
+    plan_s = time.monotonic() - t0
+    log(f"[anim] {fs.tri_verts.shape[0]} triangles, {c} clusters (group {group}): device refresh "
+        f"{refresh_ms:.3f} ms (CUDA events), host pack {packs[0]:.3f} s (frame 0), plan "
+        f"{plan_s:.3f} s (once); launches in the renders {launches}")
+    return launches
 
 
 def _net_forms(bn, st, plain_st):
@@ -1067,6 +1337,9 @@ def main() -> int:
         for m in (bitonic, pallas_binned, pallas_cluster_hbm):
             m.LAUNCHES = 0
 
+    def counts():
+        return {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES}
+
     with tempfile.TemporaryDirectory() as tmp:
         # the main path: the gallery in every render mode, then the contest
         # option file as shipped
@@ -1093,6 +1366,25 @@ def main() -> int:
         if min(bitonic.LAUNCHES - after_scale[0], pallas_binned.LAUNCHES - after_scale[1]) <= 0:
             raise AssertionError(f"[contest ref] a kernel was not launched: {slice_launches}")
         log(f"[launches] slice path (scale test + contest mis_mode=ref): {slice_launches}")
+        # this slice's paths, each counted alone: the OBJ option file, the
+        # masked engine on the gallery and at contest scale, then animated
+        # geometry
+        t0 = time.monotonic()
+        zero()
+        phase_obj(tmp)
+        by_path = {"obj": counts()}
+        by_path["masked_gallery"] = phase_masked_gallery(dev, zero, counts)
+        zero()
+        phase_contest(dev, tmp, engine="masked")
+        by_path["masked_contest"] = counts()
+        log(f"[phases 16-18] {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        by_path["anim"] = phase_anim(dev, results, zero, counts)
+        log(f"[phase 19] {time.monotonic() - t0:.2f} s")
+        for path, got in by_path.items():
+            if min(got.values()) == 0:
+                raise AssertionError(f"[{path}] a kernel was not launched: {got}")
+            log(f"[launches] {path} path: {got}")
     log(f"[launches] two-sample engine phase (cluster kernels): {ref_launches}")
     launches.update(cluster=ref_launches["cluster"], mxu=ref_launches["mxu"],
                     cluster_hbm=slice_launches["cluster_hbm"])
@@ -1110,8 +1402,10 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=f"henjou_torch/csrc/{src}", replaces=replaces,
              launches=launches[key],
-             **{f: results[key][f] for f in ("max_abs_err", "ms", "sorted_ms", "plain_ms",
-                                             "bound_ms", "bound_by", "library_ms")
+             **({"launches_by_path": {p: got[key] for p, got in by_path.items()}}
+                if key in ("bitonic", "binned") else {}),
+             **{f: results[key][f] for f in ("max_abs_err", "ms", "sorted_ms", "masked_ms",
+                                             "plain_ms", "bound_ms", "bound_by", "library_ms")
                 if f in results[key]})
         for name, key, src, replaces in table
     ]

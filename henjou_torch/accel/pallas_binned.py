@@ -24,9 +24,14 @@ tests.
 
 Not ported, because they exist only for the TPU: the tile worklist
 prepass (`_tile_worklists`, `_bitonic_rows`), `probe_ray_tile` and the
-kernel's experiment knobs. The device refresh for animated frames
-(`plan_binned_order`, `build_binned_from_order`) is a later slice: until
-then the renderer re-runs the host pack for each distinct transform set.
+kernel's experiment knobs.
+
+Animated geometry: `plan_binned_order` plans the cluster order once on
+the host (a median split per instance, so a cluster never spans two
+instances and stays tight under rigid motion), and
+`build_binned_from_order` refreshes the rows and boxes from that order
+for each frame's world-space triangles with plain torch ops on their
+device (the JAX package does it in one jitted XLA op, not in Pallas).
 
 ``LAUNCHES`` counts the wrapper calls that launched the CUDA kernel;
 ``VISITS`` the (ray, cluster) pairs the plain version tested triangles
@@ -121,10 +126,7 @@ def pack_binned_np(tri_verts, device, k: int = K) -> BinnedClusters:
 
     pad = (-t) % k
     c = (t + pad) // k
-    group = 1 if c <= MAX_FINE_CLUSTERS else SC
-    while group > 1 and group < 64 and (c + group - 1) // group > MAX_GROUPS:
-        group *= 2
-    g = (c + group - 1) // group
+    group, g = _cluster_groups(c)
     ctot = g * group
 
     order_p = np.full(ctot * k, -1, np.int32)
@@ -179,6 +181,106 @@ def pack_binned_np(tri_verts, device, k: int = K) -> BinnedClusters:
         group=group,
         num_groups=g,
         k=k,
+    )
+
+
+def _cluster_groups(c: int):
+    """(group, num_groups) for c clusters: one cluster per group up to
+    MAX_FINE_CLUSTERS, SC above, doubled until there are at most
+    MAX_GROUPS groups."""
+    group = 1 if c <= MAX_FINE_CLUSTERS else SC
+    while group > 1 and group < 64 and (c + group - 1) // group > MAX_GROUPS:
+        group *= 2
+    return group, (c + group - 1) // group
+
+
+def plan_binned_order(tri_verts, geom_ranges=None):
+    """The cluster order of an animated scene, planned once on the host:
+    each (start_tri, count) range of `geom_ranges` (one per instance;
+    default the whole scene) is median-split on its own and padded to a
+    multiple of K with -1. Returns (order [Ctot*K] i32, num_clusters,
+    group, num_groups), bit-equal to the JAX package's plan."""
+    tv = np.asarray(tri_verts, np.float32)
+    if geom_ranges is None:
+        geom_ranges = [(0, tv.shape[0])]
+    chunks = []
+    for start, count in geom_ranges:
+        if count == 0:
+            continue
+        sub = _median_split_order(tv[start : start + count].mean(axis=1)) + start
+        chunks.append(np.concatenate([sub, np.full((-count) % K, -1, np.int32)]))
+    order = np.concatenate(chunks) if chunks else np.zeros(0, np.int32)
+    c = len(order) // K
+    group, g = _cluster_groups(c)
+    order = np.concatenate([order, np.full(g * group * K - len(order), -1, np.int32)])
+    return order.astype(np.int32), c, group, g
+
+
+def _cross(a, b):
+    """a x b as separate elementwise ops (numpy's order of operations; one
+    kernel per op on CUDA, so nothing contracts into an FMA)."""
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
+
+
+def _dot(a, b):
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def build_binned_from_order(tri_verts: torch.Tensor, order, num_clusters: int, group: int,
+                            num_groups: int) -> BinnedClusters:
+    """The pack of the current world-space triangles `tri_verts` [T,3,3] in
+    the planned `order` (`plan_binned_order`), on the triangles' device:
+    one gather, dense min/max reductions for the boxes (pads hold _BIG),
+    the Baldwin-Weber rows in `_baldwin_rows_np`'s order of operations,
+    and the order bit-cast into row 12."""
+    dev = tri_verts.device
+    order = torch.as_tensor(order, dtype=torch.int32, device=dev)
+    ctot = num_groups * group
+    valid = (order >= 0)[:, None, None]
+    verts = torch.where(valid, tri_verts[order.clamp(min=0).long()], 0.0)  # [Ctot*K,3,3]
+    v0 = verts[:, 0]
+    e1 = verts[:, 1] - verts[:, 0]
+    e2 = verts[:, 2] - verts[:, 0]
+
+    amin = torch.where(valid, verts, _BIG).reshape(ctot, K * 3, 3).amin(dim=1)
+    amax = torch.where(valid, verts, -_BIG).reshape(ctot, K * 3, 3).amax(dim=1)
+
+    def boxes(lo, hi, n):
+        cols = max(8, -(-n // 8) * 8)
+        box = torch.full((8, cols), _BIG, dtype=torch.float32, device=dev)
+        box[3:6] = -_BIG
+        box[0:3, :n] = lo.T
+        box[3:6, :n] = hi.T
+        return box
+
+    gmin = amin.reshape(num_groups, group, 3).amin(dim=1)
+    gmax = amax.reshape(num_groups, group, 3).amax(dim=1)
+
+    nrm = _cross(e1, e2)
+    nn = _dot(nrm, nrm)[:, None]
+    ok = nn > 0.0
+    inv_nn = torch.where(ok, 1.0 / torch.where(ok, nn, 1.0), 0.0)
+    g1 = _cross(e2, nrm) * inv_nn
+    g2 = _cross(nrm, e1) * inv_nn
+    nrm = torch.where(ok, nrm, 0.0)
+    zero = torch.zeros_like(nn[:, 0])
+    planes = [nrm[:, 0], nrm[:, 1], nrm[:, 2], _dot(nrm, v0),
+              g1[:, 0], g1[:, 1], g1[:, 2], -_dot(g1, v0),
+              g2[:, 0], g2[:, 1], g2[:, 2], -_dot(g2, v0),
+              order.view(torch.float32), zero, zero, zero]
+    rows = torch.stack(planes, dim=1).reshape(ctot, K, 16).transpose(1, 2).reshape(-1, K)
+    return BinnedClusters(
+        rows=rows.contiguous(),
+        aabb=boxes(amin, amax, ctot),
+        gaabb=boxes(gmin, gmax, num_groups),
+        scene_lo=amin.amin(dim=0),  # pad clusters hold +_BIG: no effect
+        scene_hi=amax.amax(dim=0),
+        num_clusters=num_clusters,
+        group=group,
+        num_groups=num_groups,
+        k=K,
     )
 
 

@@ -1,6 +1,8 @@
 """Dependency-free PNG encode/decode.
 
-Port of henjou_tpu/post/png.py: host numpy code, copied without the C fast path.
+Port of henjou_tpu/post/png.py: host numpy code, copied. The scanline
+unfilter runs in C (`henjou_torch.native.png_unfilter`); `unfilter_plain`
+is its pure-Python version, which the tests hold it to byte for byte.
 
 The reference leans on stb_image / sutil::saveImage; this image has no
 Pillow, so we implement the subset we need: 8/16-bit RGB(A)/gray,
@@ -100,6 +102,15 @@ def decode_png(buf: bytes, name: str = "<bytes>") -> np.ndarray:
     bypp = channels * (bitdepth // 8)  # bytes per pixel
     stride = w * bypp
 
+    from henjou_torch.native import png_unfilter
+
+    out = png_unfilter(raw, h, stride, bypp)
+    return _expand_png(out, w, h, channels, bitdepth, color_type, palette, trns)
+
+
+def unfilter_plain(raw: bytes, h: int, stride: int, bypp: int) -> np.ndarray:
+    """PNG scanline reconstruction in Python (the plain version of
+    `henjou_torch.native.png_unfilter`) -> [h, stride] u8."""
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     offs = 0
@@ -131,8 +142,7 @@ def decode_png(buf: bytes, name: str = "<bytes>") -> np.ndarray:
                     raise ValueError(f"bad filter {ftype}")
         out[y] = cur
         prev = cur
-
-    return _expand_png(out, w, h, channels, bitdepth, color_type, palette, trns)
+    return out
 
 
 def _expand_png(out, w, h, channels, bitdepth, color_type, palette, trns):

@@ -1,18 +1,25 @@
 """Renderer facade: canary -> load -> build -> frame loop -> finalize ->
 export.
 
-Port of the wavefront half of henjou_tpu/runtime/renderer.py: `build`,
-`_select_accel`/`_accel_adapters`, `render_frame` (with checkpoint/resume
-after every spp batch), `_render_frame_wavefront` (pixel chunks, spp
-batches and the chunk-granular deadline), `render_debug`, `_finalize`
-(every render mode: the spatial SVGF denoiser, temporal reprojection and
-accumulation, the guided 2x upscale) with its first-hit probes, and
-`initialize_and_render` (the hardware canary on CUDA, the time budget and
-the PNG naming). The port renders with the wavefront engine on every
-device; the accelerator is the binned intersector inside the bitonic ray
-sort for scenes over 256 triangles, brute force below; the probes trace
-through the raw binned intersector. With ``mis_mode="ref"`` (two-sample
-MIS) the per-bounce light query is dense (`intersect_lights`) up to
+Port of henjou_tpu/runtime/renderer.py: `build`, `_select_accel`/
+`_accel_adapters`, `frame_scene` (with the animated-geometry switch to a
+planned cluster order refreshed on the device), `render_frame` (one frame
+loop for both engines: spp batches over pixel groups, the predictive
+deadline, checkpoint/resume after every spp batch) with each engine's
+step: `_make_wavefront_step` (contiguous pixel chunks through
+`wavefront_render`) and `_make_masked_step` (the depth-loop engine:
+131,072-pixel tiles in swizzled order over `_integrate`), `render_debug`,
+`_finalize` (every render mode: the spatial SVGF denoiser, temporal
+reprojection and accumulation, the guided 2x upscale) with its first-hit
+probes, `initialize_and_render` (the hardware canary on CUDA, the time
+budget and the PNG naming), and glTF and OBJ scenes. ``engine="auto"``
+is the wavefront engine on every device (the JAX package picks the masked
+engine on the CPU); ``engine="masked"`` renders the reference's
+two-sample estimators. The accelerator is the binned intersector inside
+the bitonic ray sort for scenes over 256 triangles, brute force below;
+the probes trace through the raw binned intersector. With
+``mis_mode="ref"`` (two-sample MIS on the wavefront engine) the
+per-bounce light query is dense (`intersect_lights`) up to
 BINNED_LIGHT_THRESHOLD emissive triangles and goes through the binned
 intersector over the emissive subset above it
 (`make_binned_light_intersector`, cached with the main accel).
@@ -22,13 +29,14 @@ once per frame and the temporal history stays there between frames. A
 failing probe or canary raises; nothing falls back.
 
 Options that select code not ported yet raise NotImplementedError naming
-their ROADMAP Queue 1 item by title (`_check_supported`):
-``engine="masked"``, ``adaptive``, ``light_ris``, ``sampler="sobol"``
-and ``HENJOU_POOL_SORT=1``. Multi-GPU is not ported either.
+their ROADMAP Queue 1 item by title (`_check_supported`): ``adaptive``,
+``light_ris``, ``sampler="sobol"`` and ``HENJOU_POOL_SORT=1``. Multi-GPU
+is not ported either.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -80,9 +88,27 @@ def _pixel_chunks(n_pixels: int, chunk_max: int):
     return [(b, min(size, n_pixels - b)) for b in range(0, n_pixels, size)]
 
 
+@functools.lru_cache(maxsize=8)
+def _swizzled_pixel_order(width: int, height: int, bw: int = 32, bh: int = 16) -> np.ndarray:
+    """Pixel indices (i64) reordered into bw x bh screen blocks, so a tile
+    of the masked engine is a set of compact image blocks (coherent first
+    rays). Cached: do not write to the result."""
+    p = np.arange(width * height)
+    px = p % width
+    py = p // width
+    blocks_x = (width + bw - 1) // bw
+    key = (py // bh) * blocks_x + (px // bw)
+    inner = (py % bh) * bw + (px % bw)
+    return np.argsort(key * (bw * bh) + inner, kind="stable").astype(np.int64)
+
+
 class Renderer:
     # bigger frames render in pixel chunks of at most this many pixels
     FILM_CHUNK_PIXELS = 1 << 18
+    # pixels per tile of the masked engine (the JAX package's DEFAULT_TILE)
+    MASKED_TILE = 1 << 17
+    # the frame loop's per-pixel sums, as a checkpoint names them
+    _CKPT_SUMS = ("color", "albedo", "normal", "m2", "cnt")
     # two-sample MIS traces its light query through the binned
     # intersector over the emissive subset above this many emissive
     # triangles, densely below
@@ -99,8 +125,12 @@ class Renderer:
         self.lut = None
         self.bsdf_sample: Optional[Callable] = None
         self._accel_cache = None
+        # an animated scene's planned cluster order (order on the device,
+        # num_clusters, group, num_groups)
+        self._accel_plan = None
         self._light_accel_cache = None
-        self._est_spp_chunk = None
+        # the frame loop's seconds per pixel-spp, per engine
+        self._est_px_spp: dict = {}
         # DenoiseTemporal state: the previous output with its guides, the
         # banked raw film (mean, variance, effective count, guides), the
         # frame it belongs to and that frame's camera
@@ -126,8 +156,6 @@ class Renderer:
     def _check_supported(self):
         opt = self.option
         unsupported = [
-            (opt.engine == "masked",
-             "engine='masked' (ROADMAP Queue 1, masked engine)"),
             (opt.adaptive, f"adaptive sampling ({SAMPLERS_ITEM})"),
             (opt.light_ris >= 2, f"light_ris ({SAMPLERS_ITEM})"),
             (opt.sampler == "sobol", f"sampler='sobol' ({SAMPLERS_ITEM})"),
@@ -144,6 +172,7 @@ class Renderer:
         """Upload the scene and make the BSDF closures."""
         assert self.scene is not None, "set_scene or load a file first"
         self._accel_cache = None
+        self._accel_plan = None
         self._light_accel_cache = None
         t0 = time.monotonic()
         self.device_scene = build_device_scene(self.scene, self.device)
@@ -262,9 +291,12 @@ class Renderer:
         return (int(self.option.seed) + int(frame)) & 0x7FFFFFFF
 
     def frame_scene(self, frame: int):
-        """(FrameScene, accel, camera) of `frame`; the accel is reused while
-        the instance transforms are unchanged and re-packed on the host
-        for each new transform set."""
+        """(FrameScene, accel, camera) of `frame`. The accel is reused while
+        the instance transforms are unchanged. The first transform set packs
+        on the host (`_select_accel`); the second distinct one plans the
+        cluster order per instance once, and from then on every new set
+        refreshes the pack from that order with torch ops on the scene's
+        device (`build_binned_from_order`)."""
         time_s = frame / float(self.option.fps)
         xf, inv = self._frame_transforms(time_s)
         fs = build_frame_scene(
@@ -274,8 +306,26 @@ class Renderer:
         )
         key = xf.tobytes()
         if self._accel_cache is None or self._accel_cache[0] != key:
-            self._accel_cache = (key, self._select_accel(fs))
+            self._accel_cache = (key, self._frame_accel(fs))
         return fs, self._accel_cache[1], self._frame_camera(time_s)
+
+    def _frame_accel(self, fs):
+        """The accel of a transform set not seen last (see `frame_scene`)."""
+        from henjou_torch.accel import pallas_binned
+
+        ntris = int(fs.tri_verts.shape[0])
+        if self._accel_plan is None and self._accel_cache is not None and ntris > 256:
+            offs = self.device_scene.prim_offsets.cpu().numpy()
+            counts = np.diff(np.append(offs, ntris))
+            order, c, group, g = pallas_binned.plan_binned_order(
+                fs.tri_verts.cpu().numpy(), list(zip(offs.tolist(), counts.tolist())))
+            self._accel_plan = (torch.from_numpy(order).to(self.device), c, group, g)
+            log.info("animated scene: cluster order planned (%d clusters, group %d); "
+                     "the pack refreshes on the device from here on",
+                     self._accel_plan[1], self._accel_plan[2])
+        if self._accel_plan is not None:
+            return pallas_binned.build_binned_from_order(fs.tri_verts, *self._accel_plan)
+        return self._select_accel(fs)
 
     def light_intersector(self, frame_scene):
         """The two-sample MIS light query for `frame_scene`: None (dense
@@ -300,13 +350,26 @@ class Renderer:
 
     def render_frame(self, frame: int, deadline: Optional[float] = None,
                      checkpoint_path: Optional[str] = None) -> dict:
-        """Render one frame; returns [H,W,*] numpy AOVs (color, albedo,
-        normal, variance, count) plus 'spp_done', 'render_s', 'build_s' and
-        'n_traces'. DenoiseUpScale2X renders at half the option's size.
+        """Render one frame with the engine of `option.engine`; returns
+        [H,W,*] numpy AOVs (color, albedo, normal; the wavefront engine's
+        also variance and count) plus 'spp_done', 'render_s', 'build_s'
+        and 'n_traces'. DenoiseUpScale2X renders at half the option's size.
 
-        With `checkpoint_path`, the accumulated film is saved after every
-        spp batch, and a checkpoint of the same frame and size found there
-        is resumed from."""
+        Both engines share one frame loop: spp batches over pixel groups
+        (the wavefront engine's contiguous chunks of at most
+        FILM_CHUNK_PIXELS, the masked engine's MASKED_TILE-pixel tiles in
+        swizzled order), sums per pixel with their own sample counts, and a
+        predictive deadline. Its estimate is seconds per pixel-spp (an
+        average of measured batches, kept per engine across frames). A
+        frame's first batch always completes, so every pixel has a sample;
+        the masked engine's first shrinks to what the estimate says fits,
+        as the JAX package's does. Before each group of a later batch the
+        frame stops if that group's batch would not fit (a cut batch stays
+        unbiased, every pixel divides by its own count).
+
+        With `checkpoint_path`, the sums are saved after every spp batch,
+        and a checkpoint of the same frame and size found there is resumed
+        from."""
         self._check_supported()
         opt = self.option
         width, height = opt.image_width, opt.image_height
@@ -318,22 +381,99 @@ class Renderer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         build_s = time.monotonic() - t0
-        resume = None
+        engine = self._resolve_engine()
+        make_step = self._make_wavefront_step if engine == "wavefront" else self._make_masked_step
+        step, groups = make_step(frame_scene, accel, cam, width, height, frame)
+
+        # color, albedo, normal, the per-sample luminance squares and counts
+        sums = [np.zeros((n, 3), np.float32) for _ in range(3)] + \
+            [np.zeros((n,), np.float32) for _ in range(2)]
+        spp_done = 0
         if checkpoint_path and os.path.exists(checkpoint_path):
             with np.load(checkpoint_path) as ck:
-                # another frame, size or format: ignored, the frame starts over
+                # another frame or size, or a checkpoint without the second
+                # moments and counts: ignored, the frame starts over
                 if (int(ck["frame"]) == frame and ck["color"].shape == (n, 3)
                         and "m2" in ck and "cnt" in ck):
+                    sums = [ck[k] for k in self._CKPT_SUMS]
                     spp_done = int(ck["spp_done"])
-                    resume = (ck["color"], ck["albedo"], ck["normal"], ck["m2"], ck["cnt"],
-                              spp_done)
                     log.info("resumed frame %d at %d spp from %s", frame, spp_done,
                              checkpoint_path)
-        out = self._render_frame_wavefront(frame_scene, accel, cam, width, height,
-                                           frame, deadline=deadline,
-                                           checkpoint_path=checkpoint_path, resume=resume)
-        out["build_s"] = build_s
+        traces = 0
+        batch = max(1, opt.spp_batch)
+        est = self._est_px_spp.get(engine)
+        t0 = time.monotonic()
+        stop = False
+        while spp_done < opt.max_spp:
+            cur = min(batch, opt.max_spp - spp_done)
+            if engine == "masked" and deadline is not None and spp_done == 0 and est is not None:
+                left = deadline - (time.monotonic() - t0)
+                cur = max(1, min(cur, int(left / max(est * n, 1e-12))))
+            t_batch = time.monotonic()
+            px_done = 0
+            for index, arg, npix in groups:
+                if (deadline is not None and spp_done > 0 and est is not None
+                        and time.monotonic() - t0 + est * npix * cur > deadline):
+                    stop = True
+                    break
+                out = step(arg, spp_done, cur)
+                for acc, x in zip(sums, out[:5]):
+                    acc[index] += x.cpu().numpy()
+                traces += int(out[5])
+                px_done += npix
+            if px_done:
+                per = (time.monotonic() - t_batch) / (px_done * cur)
+                est = per if est is None else 0.5 * est + 0.5 * per
+                self._est_px_spp[engine] = est
+            if stop:
+                log.warning("frame %d: deadline hit at %d/%d spp (+%d/%d pixels of the next "
+                            "batch)", frame, spp_done, opt.max_spp, px_done, n)
+                break
+            spp_done += cur
+            if checkpoint_path:
+                # a temp file, then an atomic rename: a kill mid-write
+                # leaves the previous checkpoint whole
+                np.savez(checkpoint_path + ".tmp.npz", frame=frame, spp_done=spp_done,
+                         **dict(zip(self._CKPT_SUMS, sums)))
+                os.replace(checkpoint_path + ".tmp.npz", checkpoint_path)
+            if deadline is not None and time.monotonic() - t0 > deadline:
+                log.warning("frame %d: deadline hit at %d/%d spp", frame, spp_done, opt.max_spp)
+                break
+        render_s = time.monotonic() - t0
+        log.info("frame %d %s[%s]: %.2fs (%d spp, %.1f Mtraces, %.1f Mrays/s)", frame, engine,
+                 self.integrator if engine == "masked" or self.integrator != "mis"
+                 else opt.mis_mode, render_s, spp_done, traces / 1e6,
+                 traces / max(render_s, 1e-9) / 1e6)
+        color, albedo, normal, m2, cnt = sums
+        inv = (1.0 / np.maximum(cnt, 1.0))[:, None].astype(np.float32)
+        mu = color * inv
+        out = {
+            "color": mu.reshape(height, width, 3),
+            "albedo": (albedo * inv).reshape(height, width, 3),
+            "normal": (normal * inv).reshape(height, width, 3),
+            "spp_done": spp_done,
+            "render_s": render_s,
+            "n_traces": traces,
+            "build_s": build_s,
+        }
+        if engine == "wavefront":
+            # the masked film, as the JAX package's, has no variance or
+            # count AOV: DenoiseTemporal blends it without merging history
+            lum = 0.2126 * mu[:, 0] + 0.7152 * mu[:, 1] + 0.0722 * mu[:, 2]
+            var_mean = np.maximum(m2 * inv[:, 0] - lum * lum, 0.0) * inv[:, 0]
+            out.update(variance=var_mean.reshape(height, width),
+                       count=cnt.reshape(height, width))
         return out
+
+    def _resolve_engine(self) -> str:
+        """The engine of `option.engine`: "auto" is the wavefront engine on
+        every device (the JAX package resolves it to the masked engine on
+        the CPU)."""
+        engine = "wavefront" if self.option.engine == "auto" else self.option.engine
+        if engine == "masked" and self.integrator == "mis" and self.option.mis_mode == "single":
+            log.info("engine masked: MIS renders the two-sample (ref) estimator; "
+                     "mis_mode='single' applies to the wavefront engine only")
+        return engine
 
     def _firefly_clamp(self) -> float:
         """The per-sample luminance cap: auto (-1) is 64.0 in the Denoise
@@ -343,114 +483,89 @@ class Renderer:
             clamp = 64.0 if self.option.render_mode in DENOISE_MODES else 0.0
         return clamp
 
-    def _render_frame_wavefront(self, frame_scene, accel, cam, width, height,
-                                frame, deadline=None, checkpoint_path=None,
-                                resume=None) -> dict:
-        """Wavefront execution over pixel chunks and spp batches, with a
-        chunk-granular predictive deadline: before each chunk its cost is
-        predicted from an average of measured per-spp chunk times, and the
-        frame stops when it would not fit (partial batches stay unbiased,
-        every pixel divides by its own count; the first batch always
-        completes). `resume` is (color, albedo, normal, m2, cnt, spp_done)
-        sums to continue from."""
-        from henjou_torch.integrator.wavefront import wavefront_render
+    def _make_wavefront_step(self, frame_scene, accel, cam, width, height, frame):
+        """The wavefront engine's (step, groups) for `render_frame`: groups
+        are contiguous pixel chunks, and `step((base, count), spp_start,
+        spp_count)` renders one through `wavefront_render` (persistent lanes
+        that refill as paths end) and returns its film's sums and traces."""
+        from henjou_torch.integrator import wavefront
 
         opt = self.option
         integrator = self.integrator
         # a power-of-two pool: the bitonic sort takes n = 2^m >= 1024
         lanes = min(1 << 16, max(1 << 12, 1 << (width * height - 1).bit_length()))
         mis_single = integrator == "mis" and opt.mis_mode != "ref"
-        n = width * height
-        chunks = _pixel_chunks(n, self.FILM_CHUNK_PIXELS)
         clamp = self._firefly_clamp()
         intersect_fn, occluded_fn = self._accel_adapters(accel)
         light_isect_fn = (self.light_intersector(frame_scene)
                           if integrator == "mis" and not mis_single else None)
+        seed = self._frame_seed(frame)
 
-        if resume is not None:
-            color, albedo, normal, m2, cnt, spp_done = resume
-        else:
-            color = np.zeros((n, 3), np.float32)
-            albedo = np.zeros((n, 3), np.float32)
-            normal = np.zeros((n, 3), np.float32)
-            m2 = np.zeros((n,), np.float32)
-            cnt = np.zeros((n,), np.float32)
-            spp_done = 0
-        traces = 0
-        batch = max(1, opt.spp_batch)
-        t0 = time.monotonic()
-        est = self._est_spp_chunk
-        stop = False
-        while spp_done < opt.max_spp and not stop:
-            cur = min(batch, opt.max_spp - spp_done)
-            chunks_done = 0
-            for base, count in chunks:
-                if (
-                    deadline is not None
-                    and spp_done > 0
-                    and est is not None
-                    and time.monotonic() - t0 + est * cur > deadline
-                ):
-                    stop = True
-                    break
-                t_chunk = time.monotonic()
-                film = wavefront_render(
-                    frame_scene, self.sky, cam, width, height, cur,
-                    self.bsdf_sample, bsdf_eval=self.bsdf_eval,
-                    bsdf_pdf=self.bsdf_pdf, integrator=integrator,
-                    seed=self._frame_seed(frame), lanes=lanes,
-                    intersect_fn=intersect_fn, occluded_fn=occluded_fn,
-                    light_isect_fn=light_isect_fn,
-                    spp_offset=spp_done, mis_single=mis_single,
-                    pixel_base=base, pixel_count=count, firefly_clamp=clamp,
-                )
-                sl = slice(base, base + count)
-                color[sl] += film.color.cpu().numpy()
-                albedo[sl] += film.albedo.cpu().numpy()
-                normal[sl] += film.normal.cpu().numpy()
-                m2[sl] += film.m2.cpu().numpy()
-                cnt[sl] += film.count.cpu().numpy()
-                traces += int(film.n_traces)
-                chunks_done += 1
-                per = (time.monotonic() - t_chunk) / cur
-                est = per if est is None else 0.5 * est + 0.5 * per
-                self._est_spp_chunk = est
-            if stop:
-                log.warning(
-                    "frame %d: deadline hit at %d/%d spp (+%d/%d chunks of the next batch)",
-                    frame, spp_done, opt.max_spp, chunks_done, len(chunks),
-                )
-                break
-            spp_done += cur
-            if checkpoint_path:
-                # a temp file, then an atomic rename: a kill mid-write
-                # leaves the previous checkpoint whole
-                np.savez(checkpoint_path + ".tmp.npz", frame=frame, spp_done=spp_done,
-                         color=color, albedo=albedo, normal=normal, m2=m2, cnt=cnt)
-                os.replace(checkpoint_path + ".tmp.npz", checkpoint_path)
-            if deadline is not None and time.monotonic() - t0 > deadline:
-                log.warning("frame %d: deadline hit at %d/%d spp", frame, spp_done, opt.max_spp)
-                break
-        render_s = time.monotonic() - t0
-        log.info(
-            "frame %d wavefront[%s]: %.2fs (%d spp, %.1f Mtraces, %.1f Mrays/s)",
-            frame, opt.mis_mode if integrator == "mis" else integrator,
-            render_s, spp_done, traces / 1e6, traces / max(render_s, 1e-9) / 1e6,
-        )
-        inv = (1.0 / np.maximum(cnt, 1.0))[:, None].astype(np.float32)
-        mu = color * inv
-        lum = 0.2126 * mu[:, 0] + 0.7152 * mu[:, 1] + 0.0722 * mu[:, 2]
-        var_mean = np.maximum(m2 * inv[:, 0] - lum * lum, 0.0) * inv[:, 0]
-        return {
-            "color": mu.reshape(height, width, 3),
-            "albedo": (albedo * inv).reshape(height, width, 3),
-            "normal": (normal * inv).reshape(height, width, 3),
-            "variance": var_mean.reshape(height, width),
-            "count": cnt.reshape(height, width),
-            "spp_done": spp_done,
-            "render_s": render_s,
-            "n_traces": traces,
-        }
+        def step(chunk, spp_start, spp_count):
+            base, count = chunk
+            film = wavefront.wavefront_render(
+                frame_scene, self.sky, cam, width, height, spp_count,
+                self.bsdf_sample, bsdf_eval=self.bsdf_eval,
+                bsdf_pdf=self.bsdf_pdf, integrator=integrator, seed=seed, lanes=lanes,
+                intersect_fn=intersect_fn, occluded_fn=occluded_fn,
+                light_isect_fn=light_isect_fn, spp_offset=spp_start, mis_single=mis_single,
+                pixel_base=base, pixel_count=count, firefly_clamp=clamp,
+            )
+            return film.color, film.albedo, film.normal, film.m2, film.count, film.n_traces
+
+        chunks = _pixel_chunks(width * height, self.FILM_CHUNK_PIXELS)
+        return step, [(slice(b, b + c), (b, c), c) for b, c in chunks]
+
+    def _integrate(self, frame_scene, o, d, state, intersect_fn, occluded_fn):
+        """One spp of the selected integrator over a lane batch."""
+        if self.integrator == "pathtrace":
+            from henjou_torch.integrator.pathtrace import pathtrace
+
+            return pathtrace(frame_scene, self.sky, o, d, state, self.bsdf_sample,
+                             intersect_fn=intersect_fn)
+        if self.integrator == "nee":
+            from henjou_torch.integrator.nee import nee
+
+            return nee(frame_scene, self.sky, o, d, state, self.bsdf_sample, self.bsdf_eval,
+                       intersect_fn=intersect_fn, occluded_fn=occluded_fn)
+        if self.integrator == "mis":
+            from henjou_torch.integrator.mis import mis
+
+            return mis(frame_scene, self.sky, o, d, state, self.bsdf_sample, self.bsdf_eval,
+                       self.bsdf_pdf, intersect_fn=intersect_fn, occluded_fn=occluded_fn)
+        raise ValueError(f"unknown integrator {self.integrator}")
+
+    def _make_masked_step(self, frame_scene, accel, cam, width, height, frame):
+        """The masked engine's (step, groups) for `render_frame`: groups are
+        MASKED_TILE-pixel tiles in swizzled order, and `step(pixel_idx,
+        spp_start, spp_count)` runs, per spp, a CMJ state, the camera rays
+        and one pass of the integrator's depth loop over the tile's pixels
+        ([R] i64 on the device), and returns the sums (lte, albedo, normal
+        [R,3]; luminance squares, counts [R]) and the traces (0-d i64)."""
+        from henjou_torch.runtime.camera import camera_rays
+        from henjou_torch.sampling.cmj import make_cmj_state
+
+        fns = self._accel_adapters(accel)
+        seed = self._frame_seed(frame)
+
+        def step(pixel_idx, spp_start, spp_count):
+            c = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32, device=self.device)
+            a, nm = torch.zeros_like(c), torch.zeros_like(c)
+            m2 = torch.zeros_like(c[:, 0])
+            traces = torch.zeros((), dtype=torch.int64, device=self.device)
+            for i in range(spp_count):
+                state = make_cmj_state(spp_start + i, pixel_idx, seed)
+                o, d, state = camera_rays(cam, width, height, pixel_idx, state)
+                res = self._integrate(frame_scene, o, d, state, *fns)
+                lum = res.lte[:, 0] * 0.2126 + res.lte[:, 1] * 0.7152 + res.lte[:, 2] * 0.0722
+                c, a, nm = c + res.lte, a + res.aov_albedo, nm + res.aov_normal
+                m2 = m2 + lum * lum
+                traces = traces + res.n_traces
+            return c, a, nm, m2, torch.full_like(m2, float(spp_count)), traces
+
+        order = _swizzled_pixel_order(width, height)
+        tiles = [order[b:b + self.MASKED_TILE] for b in range(0, order.shape[0], self.MASKED_TILE)]
+        return step, [(t, torch.from_numpy(t).to(self.device), t.shape[0]) for t in tiles]
 
     # ---------------- debug mode ----------------
 
@@ -702,10 +817,9 @@ class Renderer:
 
             self.set_scene(load_gltf(path))
         elif path.lower().endswith(".obj"):
-            raise NotImplementedError(
-                "OBJ scenes are not ported yet (scene/obj.py): "
-                "ROADMAP Queue 1, OBJ loader and the C fast paths"
-            )
+            from henjou_torch.scene.obj import load_obj
+
+            self.set_scene(load_obj(path))
         else:
             raise ValueError(f"unsupported scene file: {path}")
         self.setup_stats["load_s"] = time.monotonic() - t0

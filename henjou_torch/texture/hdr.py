@@ -1,6 +1,8 @@
 """Radiance .hdr (RGBE) decoder for IBL environment maps.
 
-Port of henjou_tpu/texture/hdr.py: host numpy code, copied without the C fast path.
+Port of henjou_tpu/texture/hdr.py: host numpy code, copied. The scanline
+decode runs in C (`henjou_torch.native.hdr_decode`); `decode_rgbe_plain`
+is its pure-Python version, which the tests hold it to byte for byte.
 
 Replaces stb_image's HDR path used by the reference's HDRTexture
 (include/renderer/texture.h:42-169). Supports the common case: 32-bit_rle_rgbe,
@@ -35,7 +37,15 @@ def read_hdr(path: str) -> np.ndarray:
         raise ValueError(f"unsupported HDR orientation: {res}")
     height, width = int(res[1]), int(res[3])
 
-    raw = np.frombuffer(data, np.uint8, offset=pos)
+    from henjou_torch.native import hdr_decode
+
+    return hdr_decode(data[pos:], width, height)
+
+
+def decode_rgbe_plain(scanlines: bytes, width: int, height: int) -> np.ndarray:
+    """The scanlines after the header (new-style RLE or flat) -> [H,W,3]
+    f32, in Python (the plain version of `henjou_torch.native.hdr_decode`)."""
+    raw = np.frombuffer(scanlines, np.uint8)
     img = np.zeros((height, width, 4), np.uint8)
     offs = 0
     for y in range(height):

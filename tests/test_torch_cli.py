@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -69,7 +70,7 @@ def test_cuda_device_without_cuda_raises():
 @pytest.mark.parametrize(
     "override",
     [
-        dict(engine="masked"),
+        dict(adaptive=True, engine="masked"),
         dict(adaptive=True),
         dict(sampler="sobol"),
         dict(light_ris=4),
@@ -129,12 +130,19 @@ def test_renderer_mis_ref_takes_binned_light_query(monkeypatch):
 
 
 def test_masked_engine_still_raises(monkeypatch):
+    """The masked engine renders the gallery (a film without the variance
+    and count AOVs), and still raises for an option not ported yet."""
     monkeypatch.chdir(ROOT)
     r = Renderer(device="cpu")
     r.load_render_option(GALLERY)
-    r.option = dataclasses.replace(r.option, engine="masked", mis_mode="ref")
+    r.option = dataclasses.replace(r.option, engine="masked", mis_mode="ref", image_width=16,
+                                   image_height=8, max_spp=1)
     r._load_scene_from_option()
-    with pytest.raises(NotImplementedError, match="engine='masked' \\(ROADMAP Queue 1, masked engine\\)"):
+    out = r.render_frame(0)
+    assert out["spp_done"] == 1 and out["n_traces"] > 0 and "variance" not in out
+    assert np.isfinite(out["color"]).all() and out["color"].shape == (8, 16, 3)
+    r.option = dataclasses.replace(r.option, sampler="sobol")
+    with pytest.raises(NotImplementedError, match="sampler='sobol' \\(ROADMAP Queue 1"):
         r.render_frame(0)
 
 

@@ -1,6 +1,8 @@
-"""The CUDA kernels against their plain versions, on the card: 150 cases,
+"""The CUDA kernels against their plain versions, on the card: 157 cases,
 52 of them the cluster walk of the binned, flat, two-level and
-matrix-form kernels, 7 the denoiser's tensor ops on CUDA against the CPU.
+matrix-form kernels, 7 the denoiser's tensor ops on CUDA against the CPU,
+2 the sorted binned trace at the masked engine's 131,072-ray tile and 1
+the animated pack's refresh on CUDA against the CPU.
 
 These need an NVIDIA GPU and nvcc; without them they skip. The tests
 directory's conftest imports jax, which the GPU machine may not have, so
@@ -38,7 +40,7 @@ def _sort_keys(kind, n, rng):
 
 @pytest.mark.parametrize("cols", [8, 17])
 @pytest.mark.parametrize("keys", ["ties", "negative"])
-@pytest.mark.parametrize("n", [1024, 2048, 1 << 16, 1 << 18])
+@pytest.mark.parametrize("n", [1024, 2048, 1 << 16, 1 << 17, 1 << 18])
 def test_bitonic_kernel_matches_plain(cuda, n, keys, cols):
     """One launch of the network (and, at 17 columns, one more gather)
     against the stable argsort, every column bit-equal; the inverse."""
@@ -89,6 +91,55 @@ def test_binned_kernel_matches_plain(cuda, any_hit):
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert 0 < int(k[4].sum()) < n
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_sorted_binned_trace_at_the_masked_tile(cuda, any_hit):
+    """The masked engine's trace: 131,072 rays (a tile), a scalar tmin and a
+    per-lane tmax with dead lanes, through the bitonic sorted wrapper around
+    the binned kernel, against the same wrapper over the plain versions:
+    every result bit-equal, one sort and one inverse per trace."""
+    from henjou_torch.accel.sorting import make_bitonic_sorted_intersector
+
+    rng = np.random.default_rng(17)
+    c = rng.uniform(-3, 3, (20000, 1, 3))
+    tris = (c + rng.normal(scale=0.25, size=(20000, 3, 3))).astype(np.float32)
+    bc = pb.pack_binned_np(tris, cuda)
+    n = 1 << 17
+    o = torch.from_numpy(rng.uniform(-4, 4, (n, 3)).astype(np.float32)).to(cuda)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True)).to(cuda)
+    tmax = torch.from_numpy(np.where(rng.random(n) < 0.3, 0.0, 1e16).astype(np.float32)).to(cuda)
+    tmin = torch.tensor(1e-4, device=cuda)
+    kernels = make_bitonic_sorted_intersector(*pb.make_binned_intersector(bc), bc.scene_lo,
+                                              bc.scene_hi)
+    plain = make_bitonic_sorted_intersector(
+        *pb.make_binned_intersector(bc, intersect=pb.intersect_binned_plain), bc.scene_lo,
+        bc.scene_hi, sort=bitonic.bitonic_sort_plain, unsort=bitonic.bitonic_unsort_plain)
+    fn, ref = (kernels[1], plain[1]) if any_hit else (kernels[0], plain[0])
+    before = (bitonic.LAUNCHES, pb.LAUNCHES)
+    got = fn(None, o, d, tmin, tmax)
+    want = ref(None, o, d, tmin, tmax)
+    torch.cuda.synchronize()
+    assert (bitonic.LAUNCHES, pb.LAUNCHES) == (before[0] + 2, before[1] + 1)
+    for a, b in zip((got,) if any_hit else got, (want,) if any_hit else want):
+        assert torch.equal(a, b)
+    assert not bool((got if any_hit else got[4])[tmax == 0].any())
+
+
+def test_anim_refresh_on_cuda_matches_cpu(cuda):
+    """`build_binned_from_order` on CUDA against the same torch ops on the
+    CPU: every plane of rows, aabb and gaabb bit-equal (each op its own
+    kernel, so nothing contracts into an FMA; min/max are exact)."""
+    rng = np.random.default_rng(9)
+    c = rng.uniform(-4, 4, (90000, 1, 3))
+    tris = (c + rng.normal(scale=0.3, size=(90000, 3, 3))).astype(np.float32)
+    order, *rest = pb.plan_binned_order(tris, [(0, 30000), (30000, 60000)])
+    got = pb.build_binned_from_order(torch.from_numpy(tris).to(cuda), order, *rest)
+    want = pb.build_binned_from_order(torch.from_numpy(tris), order, *rest)
+    for f in ("rows", "aabb", "gaabb", "scene_lo", "scene_hi"):
+        assert torch.equal(getattr(got, f).cpu().view(torch.int32),
+                           getattr(want, f).view(torch.int32)), f
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
