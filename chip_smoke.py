@@ -110,7 +110,27 @@ prints no result. Phases, each of which raises on failure:
     boxes equal, and its rows within 64 ulps of their scale of, the same
     refresh by torch ops on the CPU; the binned kernel on it against its
     plain version within phase 4's limits; the refresh timed by CUDA
-    events beside the host pack's seconds.
+    events beside the host pack's seconds;
+20. ``sampler="sobol"``: Sobol draws (tagged and untagged states, three
+    draws) on the card bit-equal to the CPU over 2^16 states; the gallery
+    through the kernels against the plain versions passed explicitly
+    (64x36, 4 spp, RMSE at most 5e-3 as phase 6); the gallery at 512x288,
+    4 spp, through `render_frame` with and without it (spp/s of both);
+21. contest frame 0 (Default mode) with ``light_ris=8`` and with adaptive
+    sample counts through the kernels against the plain versions (32x18, 2
+    spp, as phase 6); then at 1280x720: the default at 1 spp, RIS at 1
+    spp and ``adaptive=True`` over a 2-spp warm-up and a 1-spp batch by
+    variance, whose counts are at least the warm-up's 2, uneven, and sum
+    to at most the budget and less than one sample a pixel under it;
+22. the gallery with ``HENJOU_POOL_SORT=1``: the raw binned kernel with the
+    lane pool sorted after every bounce (27 columns through
+    `bitonic_sort`: one network and one gather launch per call) against
+    the plain versions (64x36, 4 spp, 4096 lanes), then at 512x288 (65,536
+    lanes), 4 spp, against the per-trace sorted film: RMSE at most 1e-5,
+    traces equal;
+23. two processes in a gloo group on ``cuda:0`` shard the gallery's 4
+    spp (512x288, ``spp_batch=1``) against one process: RMSE at most 1e-5,
+    counts and traces equal (NCCL refuses two ranks on one card).
 
 Launch counters are zeroed just before, and read just after, each path
 that drives kernels through a user's entry point: phase 7's kernel
@@ -120,9 +140,12 @@ finalize probes included), phases 11-12 (the scale path: bitonic,
 binned and the two-level kernel), and each of this slice's paths on its
 own: phase 16 (OBJ), each masked render of phase 17 (not its wavefront
 twins), phase 18 (masked at contest scale) and phase 19's renders (not
-its comparisons). Each kernel of a path must have grown there. The
-kernels line reports, as `launches`, the bitonic and binned counts of
-the main path, with each of phases 16-19's under `launches_by_path`; the
+its comparisons), and phases 20-23: each option's render (Sobol, RIS,
+adaptive, the pool re-sort, whose bitonic launches are all 27-column
+pool sorts) and the two sharding processes' renders, summed. Each kernel
+of a path must have grown there. The kernels line reports, as
+`launches`, the bitonic and binned counts of the main path, with each of
+phases 16-23's under `launches_by_path`; the
 two-level kernel's of phases 11-12, the flat and matrix kernels' of
 phase 7, and the network kernels' of
 phase 13 (its tools' rows are that path). The line before the last is the
@@ -162,6 +185,12 @@ TOL_ENGINE_RMSE = 5e-3
 # same CMJ streams through the same kernels, whose results do not depend on
 # the other rays; runs AW-AY read 6.7e-9 to 3.3e-8 RMSE (PERF.md)
 TOL_MASKED_RMSE = 1e-5
+# the pool-sorted film against the per-trace sorted one: the same rays and
+# per-ray results, only the atomic film sums reorder
+TOL_POOL_RMSE = 1e-5
+# two processes sharding the spp against one process: the same samples,
+# summed in another order
+TOL_SHARD_RMSE = 1e-5
 GALLERY = "scenes/sphere_gallery_option.json"
 CONTEST = "scenes/rtcamp_720_option.json"
 OBJ = "scenes/cornelbox_obj_option.json"
@@ -512,47 +541,70 @@ def phase_cluster_intersect(dev, results):
         _finish_times(results[kind])
 
 
-def phase_engine(dev):
+def _engine_vs_plain(tag, r, fs, accel, cam, w, h, spp, pool=False, **kw):
+    """`wavefront_render` of r's frame at w x h, `spp`, 4096 lanes, one-sample
+    MIS with r's sampler, once with the kernels and once with their plain
+    versions passed explicitly: the binned kernel inside the bitonic sorted
+    wrapper, or with `pool` the raw kernel with the whole pool sorted after
+    every bounce by `bitonic_sort` (27 columns). Per-pixel RMSE of the mean
+    colour at most TOL_ENGINE_RMSE, sample counts equal; `kw` goes to both
+    calls. Returns the kernels' film."""
     from henjou_torch.accel import bitonic
     from henjou_torch.accel.pallas_binned import intersect_binned_plain, make_binned_intersector
-    from henjou_torch.accel.sorting import make_bitonic_sorted_intersector
+    from henjou_torch.accel.sorting import make_bitonic_sorted_intersector, ray_sort_key
     from henjou_torch.integrator.wavefront import wavefront_render
-    from henjou_torch.runtime.renderer import Renderer
 
-    r = Renderer(device=dev)
-    r.load_render_option(GALLERY)
-    r._load_scene_from_option()
-    fs, accel, cam = r.frame_scene(0)
-    w, h, spp = 64, 36, 4
-    kernel_fns = make_bitonic_sorted_intersector(
-        *make_binned_intersector(accel), accel.scene_lo, accel.scene_hi
-    )
-    plain_fns = make_bitonic_sorted_intersector(
-        *make_binned_intersector(accel, intersect=intersect_binned_plain),
-        accel.scene_lo, accel.scene_hi,
-        sort=bitonic.bitonic_sort_plain, unsort=bitonic.bitonic_unsort_plain,
-    )
+    lo, hi = accel.scene_lo, accel.scene_hi
+    kernel, plain = (make_binned_intersector(accel),
+                     make_binned_intersector(accel, intersect=intersect_binned_plain))
+    if pool:
+        inv_extent = 1.0 / torch.clamp(hi - lo, min=1e-12)
+        key = functools.partial(ray_sort_key, lo=lo, inv_extent=inv_extent)
+        runs = [(kernel, dict(pool_key_fn=key, pool_sort=bitonic.bitonic_sort)),
+                (plain, dict(pool_key_fn=key, pool_sort=bitonic.bitonic_sort_plain))]
+    else:
+        runs = [(make_bitonic_sorted_intersector(*kernel, lo, hi), {}),
+                (make_bitonic_sorted_intersector(*plain, lo, hi, sort=bitonic.bitonic_sort_plain,
+                                                 unsort=bitonic.bitonic_unsort_plain), {})]
     films = []
-    for ifn, ofn in (kernel_fns, plain_fns):
+    for (ifn, ofn), extra in runs:
         t0 = time.monotonic()
         film = wavefront_render(
             fs, r.sky, cam, w, h, spp, r.bsdf_sample, bsdf_eval=r.bsdf_eval,
-            bsdf_pdf=r.bsdf_pdf, integrator="mis", seed=0, lanes=4096,
-            intersect_fn=ifn, occluded_fn=ofn, mis_single=True,
+            bsdf_pdf=r.bsdf_pdf, integrator="mis", seed=r._frame_seed(0), lanes=4096,
+            intersect_fn=ifn, occluded_fn=ofn, mis_single=True, sobol=r._sobol(), **extra, **kw,
         )
         torch.cuda.synchronize()
         films.append(film)
-        log(f"[engine] {w}x{h} {spp} spp: {time.monotonic() - t0:.3f} s, "
+        log(f"{tag} {w}x{h} {spp} spp: {time.monotonic() - t0:.3f} s, "
             f"{int(film.n_traces)} traces")
     a, b = (f.color / f.count.clamp(min=1)[:, None] for f in films)
     rmse = float(torch.sqrt(((a - b) ** 2).mean()))
     if not torch.isfinite(a).all():
-        raise AssertionError("[engine] kernel film not finite")
+        raise AssertionError(f"{tag} kernel film not finite")
     if not torch.equal(films[0].count, films[1].count):
-        raise AssertionError("[engine] sample counts differ")
+        raise AssertionError(f"{tag} sample counts differ")
     if rmse > TOL_ENGINE_RMSE:
-        raise AssertionError(f"[engine] RMSE {rmse} > {TOL_ENGINE_RMSE}")
-    log(f"[engine] kernels vs plain versions: RMSE {rmse:.3g} (mean {float(a.mean()):.4f}), counts equal")
+        raise AssertionError(f"{tag} RMSE {rmse} > {TOL_ENGINE_RMSE}")
+    log(f"{tag} kernels vs plain versions: RMSE {rmse:.3g} (mean {float(a.mean()):.4f}), "
+        "counts equal")
+    return films[0]
+
+
+def _renderer(dev, path, **over):
+    from henjou_torch.runtime.renderer import Renderer
+
+    r = Renderer(device=dev)
+    r.load_render_option(path)
+    r.option = dataclasses.replace(r.option, **over)
+    r._load_scene_from_option()
+    return r
+
+
+def phase_engine(dev):
+    r = _renderer(dev, GALLERY)
+    fs, accel, cam = r.frame_scene(0)
+    _engine_vs_plain("[engine]", r, fs, accel, cam, 64, 36, 4)
 
 
 def phase_engine_ref(dev):
@@ -1089,6 +1141,186 @@ def phase_anim(dev, results, zero, counts):
     return launches
 
 
+def _options_vs_default(tag, r, options, zero, counts):
+    """Frame 0 of r's option file through `render_frame` as it stands, then
+    under each of `options`, {name: (option overrides, environment)}, with
+    the launch counts zeroed just before and read just after each; logs
+    spp/s and Mrays/s of every render. Returns (default AOVs, {name:
+    (AOVs, launches)})."""
+    base = r.option
+    out = {}
+    for name, (over, env) in [("default", ({}, {}))] + list(options.items()):
+        r.option = dataclasses.replace(base, **over)
+        os.environ.update(env)
+        zero()
+        try:
+            o = r.render_frame(0)
+            torch.cuda.synchronize()
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        out[name] = (o, counts())
+        log(f"{tag} {name} {over | env}: {o['spp_done']} spp in {o['render_s']:.3f} s, "
+            f"{o['spp_done'] / o['render_s']:.3f} spp/s, {o['n_traces']} traces, "
+            f"{o['n_traces'] / o['render_s'] / 1e6:.3f} Mrays/s")
+        if not np.isfinite(o["color"]).all():
+            raise AssertionError(f"{tag} {name}: film not finite")
+    r.option = base
+    return out.pop("default")[0], out
+
+
+def phase_sobol(dev, zero, counts):
+    """Phase 20: Sobol draws on the card bit-equal to the CPU over 2^16
+    tagged and untagged states; the gallery with sampler="sobol" through
+    the kernels against the plain versions (64x36, 4 spp); the gallery at
+    512x288, 4 spp, with and without it. Returns the Sobol render's
+    launches."""
+    from henjou_torch.sampling import cmj
+
+    rng = np.random.default_rng(20)
+    n = 1 << 16
+    seed = rng.integers(0, 1 << 31, n) | np.where(np.arange(n) % 2 == 0, cmj.SOBOL_SEED_FLAG, 0)
+    args = [torch.from_numpy(x) for x in (rng.integers(0, 4096, n),
+                                          rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+                                              np.int64), seed)]
+    on_cpu = cmj.make_cmj_state(*args, sobol=True)
+    on_dev = cmj.make_cmj_state(*(a.to(dev) for a in args), sobol=True)
+    for _ in range(3):
+        want, on_cpu = cmj.cmj_2d(on_cpu)
+        got, on_dev = cmj.cmj_2d(on_dev)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("[sobol] draws on CUDA differ from the CPU")
+    log(f"[sobol] {n} states x 3 draws: CUDA bit-equal to the CPU")
+    r = _renderer(dev, GALLERY, sampler="sobol", max_spp=4)
+    fs, accel, cam = r.frame_scene(0)
+    _engine_vs_plain("[sobol]", r, fs, accel, cam, 64, 36, 4)
+    r.option = dataclasses.replace(r.option, sampler="cmj")
+    _, out = _options_vs_default("[sobol]", r, {"sobol": (dict(sampler="sobol"), {})}, zero,
+                                 counts)
+    return out["sobol"][1]
+
+
+def phase_ris_adaptive(dev, zero, counts):
+    """Phase 21: contest frame 0 (Default mode) with light_ris=8 and with
+    adaptive counts through the kernels against the plain versions (32x18,
+    2 spp: the plain binned walk over the contest's 1,991 clusters takes
+    seconds a frame); then at 1280x720 through `render_frame`: the default
+    at 1 spp, light_ris=8 at 1 spp, and adaptive=True over a 2-spp warm-up
+    batch and a 1-spp batch by variance (every pixel sampled twice, the
+    counts uneven and summing to at most the budget, less than one sample
+    a pixel under it; one sample has no variance, so a 1-spp warm-up would
+    allocate uniformly). Returns each option's launches."""
+    from henjou_torch.runtime.options import RenderMode
+
+    r = _renderer(dev, CONTEST, render_mode=RenderMode.DEFAULT, end_frame=1, max_spp=1,
+                  spp_batch=1)
+    fs, accel, cam = r.frame_scene(0)
+    w, h = 32, 18
+    _engine_vs_plain("[ris]", r, fs, accel, cam, w, h, 2, light_ris=8)
+    p = torch.arange(w * h, device=dev)
+    _engine_vs_plain("[adaptive]", r, fs, accel, cam, w, h, 2,
+                     sample_counts=torch.where(p % w < w // 2, 3, 1), sample_base=p % 3)
+    _, out = _options_vs_default("[ris, adaptive]", r, {
+        "light_ris": (dict(light_ris=8), {}),
+        "adaptive": (dict(adaptive=True, max_spp=3, spp_batch=2), {})}, zero, counts)
+    n = r.option.image_width * r.option.image_height
+    cnt = out["adaptive"][0]["count"]
+    total, budget = float(cnt.sum()), 3 * n
+    if not (cnt.min() >= 2 and cnt.max() > cnt.min() and budget - n < total <= budget):
+        raise AssertionError(f"[adaptive] counts min {cnt.min()} max {cnt.max()} sum {total} "
+                             f"against a budget of {budget}")
+    log(f"[adaptive] counts over {n} pixels: min {cnt.min():.0f}, max {cnt.max():.0f}, "
+        f"sum {total:.0f} of the budget {budget}")
+    return out["light_ris"][1], out["adaptive"][1]
+
+
+def phase_pool_sort(dev, zero, counts):
+    """Phase 22: the gallery with HENJOU_POOL_SORT=1: the raw binned kernel
+    with the pool sorted after every bounce (27 columns, so one network
+    and one gather launch a sort) against the plain versions (64x36, 4 spp,
+    4096 lanes); then at 512x288 (65,536 lanes), 4 spp, through
+    `render_frame` against the per-trace sorted film: the same rays, so
+    per-pixel RMSE at most TOL_POOL_RMSE and traces equal. Every bitonic
+    launch of that render is a pool sort. Returns its launches."""
+    r = _renderer(dev, GALLERY, max_spp=4)
+    fs, accel, cam = r.frame_scene(0)
+    _engine_vs_plain("[pool sort]", r, fs, accel, cam, 64, 36, 4, pool=True)
+    base, out = _options_vs_default("[pool sort]", r, {"pool": ({}, {"HENJOU_POOL_SORT": "1"})},
+                                    zero, counts)
+    pooled, launches = out["pool"]
+    rmse = float(np.sqrt(((base["color"] - pooled["color"]) ** 2).mean()))
+    if rmse > TOL_POOL_RMSE or base["n_traces"] != pooled["n_traces"]:
+        raise AssertionError(f"[pool sort] RMSE {rmse} (limit {TOL_POOL_RMSE}), traces "
+                             f"{pooled['n_traces']} against {base['n_traces']}")
+    log(f"[pool sort] against the per-trace sorted film: RMSE {rmse:.3g} (limit "
+        f"{TOL_POOL_RMSE:g}), traces equal")
+    return launches
+
+
+SHARD_WORLD = 2
+SHARD_SPP = 4
+
+
+def _shard_worker(rank, store, out_dir, device, size):
+    """One of phase 23's processes: joins the gloo group and renders its
+    share of the gallery's SHARD_SPP spp at `size` on `device`; saves the
+    film and its launch counts."""
+    import torch.distributed as dist
+
+    from henjou_torch.accel import bitonic, pallas_binned
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=SHARD_WORLD,
+                            rank=rank)
+    try:
+        dev = torch.device(device)
+        r = _renderer(dev, GALLERY, max_spp=SHARD_SPP, spp_batch=1, image_width=size[0],
+                      image_height=size[1])
+        bitonic.LAUNCHES = pallas_binned.LAUNCHES = 0
+        out = r.render_frame(0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), color=out["color"],
+                 count=out["count"], traces=out["n_traces"], spp=out["spp_done"],
+                 render_s=out["render_s"], bitonic=bitonic.LAUNCHES,
+                 binned=pallas_binned.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(dev, tmp, size=GALLERY_SIZE):
+    """Phase 23: two processes in a gloo group on `dev` shard the gallery's
+    spp (512x288, SHARD_SPP spp, spp_batch 1: process k takes sample k of
+    every pair) against one process: per-pixel RMSE at most
+    TOL_SHARD_RMSE, counts and traces equal. NCCL refuses two ranks on one
+    card, so the film sums go through the CPU. Returns the launches summed
+    over both processes."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp, "sharded")
+    os.makedirs(out_dir)
+    t0 = time.monotonic()
+    mp.spawn(_shard_worker, args=(os.path.join(out_dir, "store"), out_dir, str(dev), size),
+             nprocs=SHARD_WORLD)
+    wall = time.monotonic() - t0
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{k}.npz"))) for k in range(SHARD_WORLD)]
+    one = _renderer(dev, GALLERY, max_spp=SHARD_SPP, spp_batch=1, image_width=size[0],
+                    image_height=size[1]).render_frame(0)
+    for k, got in enumerate(ranks):
+        rmse = float(np.sqrt(((got["color"] - one["color"]) ** 2).mean()))
+        if (rmse > TOL_SHARD_RMSE or int(got["traces"]) != one["n_traces"]
+                or not np.array_equal(got["count"], one["count"]) or int(got["spp"]) != SHARD_SPP):
+            raise AssertionError(f"[sharded] rank {k}: RMSE {rmse} (limit {TOL_SHARD_RMSE}), "
+                                 f"traces {int(got['traces'])} against {one['n_traces']}, "
+                                 f"spp {int(got['spp'])}")
+        log(f"[sharded] rank {k}: RMSE {rmse:.3g} against one process (limit "
+            f"{TOL_SHARD_RMSE:g}), counts and traces equal; render {float(got['render_s']):.3f} s "
+            f"({SHARD_SPP / float(got['render_s']):.3f} spp/s)")
+    log(f"[sharded] one process: render {one['render_s']:.3f} s "
+        f"({SHARD_SPP / one['render_s']:.3f} spp/s); two processes' wall {wall:.2f} s "
+        "(process start included)")
+    return {k: int(sum(got[k] for got in ranks)) for k in ("bitonic", "binned")}
+
+
 def _net_forms(bn, st, plain_st):
     """Each kernel of bitonic_net in every form its wrapper takes, against
     its plain version on the same [10, 65536] state: yields (kernel, form,
@@ -1381,6 +1613,14 @@ def main() -> int:
         t0 = time.monotonic()
         by_path["anim"] = phase_anim(dev, results, zero, counts)
         log(f"[phase 19] {time.monotonic() - t0:.2f} s")
+        # the opt-in options, each counted alone: Sobol, RIS lights,
+        # adaptive allocation, the pool re-sort, two processes sharding spp
+        t0 = time.monotonic()
+        by_path["sobol"] = phase_sobol(dev, zero, counts)
+        by_path["light_ris"], by_path["adaptive"] = phase_ris_adaptive(dev, zero, counts)
+        by_path["pool_sort"] = phase_pool_sort(dev, zero, counts)
+        by_path["sharded"] = phase_sharded(dev, tmp)
+        log(f"[phases 20-23] {time.monotonic() - t0:.2f} s")
         for path, got in by_path.items():
             if min(got.values()) == 0:
                 raise AssertionError(f"[{path}] a kernel was not launched: {got}")

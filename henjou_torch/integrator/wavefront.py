@@ -21,18 +21,31 @@ shadow trace) and mis in two forms:
   `intersect_lights`) plus a bounded any-hit query up to that light, and
   `closest_hit` is fed the synthesized result.
 
+Opt-in forms, as in the JAX engine:
+
+- ``sobol=True``: lanes whose seed carries SOBOL_SEED_FLAG draw the
+  Owen-scrambled Sobol sequence (`sampling/sobol.py`);
+- ``light_ris=m >= 2``: NEE picks its light by resampling m candidates
+  (`sample_light_ris`); the contribution divides by the resampled density
+  and the MIS weight takes the kept candidate's plain pdf;
+- ``sample_counts`` (adaptive allocation): chunk-local pixel p takes
+  sample_counts[p] samples from absolute index sample_base[p] on; a
+  sample index maps to its pixel by a search of the counts' inclusive
+  prefix;
+- ``pool_key_fn`` (HENJOU_POOL_SORT): after every bounce the whole pool
+  is sorted by its outgoing rays' key, carrying all 27 per-lane columns
+  through `bitonic_sort` (lane order is free: the film goes through
+  `pix`, the sampler through counters), so the raw kernels see coherent
+  rays without a sort and unsort around each trace.
+
 Differences from the JAX engine, none of which change an estimate:
 
 - `jax.lax.while_loop` is a Python loop; its condition reads two counts
-  back from the device once per iteration.
+  back from the device once per iteration (three with adaptive counts:
+  their sum rides the same read).
 - The film update `.at[pix].add` is `index_add_`, which on CUDA uses
   atomics: per-pixel sums are taken in a varying order.
 - The trace count is an exact int64 instead of an f32 sum.
-
-These raise NotImplementedError until their ROADMAP items land:
-adaptive ``sample_counts``, ``light_ris`` and the pool re-sort
-``pool_key_fn`` (HENJOU_POOL_SORT), all ROADMAP Queue 1, opt-in samplers
-and allocation.
 """
 
 from __future__ import annotations
@@ -41,18 +54,21 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from henjou_torch.accel import bitonic
+from henjou_torch.accel.sorting import DEAD_KEY
 from henjou_torch.integrator.pathtrace import MAX_DEPTH
 from henjou_torch.integrator.payload import Sky, closest_hit, occluded
 from henjou_torch.math.constants import SHADOW_EPS_REL, TMAX_RAY, ray_eps
 from henjou_torch.math.vec import absdot, dot, length, local_to_world, orthonormal_basis, world_to_local
 from henjou_torch.runtime.camera import Camera, camera_rays
-from henjou_torch.sampling.cmj import CMJState, cmj_1d, cmj_2d, make_cmj_state
-from henjou_torch.sampling.light_sample import intersect_lights, light_table, sample_light
+from henjou_torch.sampling.cmj import M32, CMJState, cmj_1d, cmj_2d, make_cmj_state
+from henjou_torch.sampling.light_sample import (
+    intersect_lights,
+    light_table,
+    sample_light,
+    sample_light_ris,
+)
 from henjou_torch.scene.scenedata import FrameScene
-
-
-# the ROADMAP item that ports adaptive counts, light_ris and the pool re-sort
-SAMPLERS_ITEM = "ROADMAP Queue 1, opt-in samplers and allocation"
 
 
 class WavefrontFilm(NamedTuple):
@@ -68,8 +84,18 @@ class WavefrontFilm(NamedTuple):
 _LUMA = (0.2126, 0.7152, 0.0722)
 
 
+# the per-lane fields of a CMJState (its `sobol` flag is per renderer)
+_LANE_FIELDS = ("n_spp", "scramble", "depth", "image_idx")
+
+
 def _where_state(mask, a: CMJState, b: CMJState) -> CMJState:
-    return CMJState(*(torch.where(mask, x, y) for x, y in zip(a, b)))
+    return b._replace(**{f: torch.where(mask, getattr(a, f), getattr(b, f))
+                         for f in _LANE_FIELDS})
+
+
+def _as_i32(x):
+    """u32 values held in int64 as int32 with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def wavefront_render(
@@ -98,26 +124,26 @@ def wavefront_render(
     sample_base=None,
     firefly_clamp: float = 0.0,
     light_ris: int = 0,
+    sobol: bool = False,
+    pool_sort: Callable = bitonic.bitonic_sort,
 ) -> WavefrontFilm:
     """Render pixels [pixel_base, pixel_base + pixel_count) of a
     width x height image at `spp` samples with a `lanes`-wide refilling
     pool. Returns per-pixel SUMS (divide by `count`). The CMJ stream and
     the camera rays are keyed on the global pixel id, so a chunked render
-    equals an unchunked one. Runs on the device of `frame`."""
+    equals an unchunked one. Runs on the device of `frame`.
+
+    `sample_counts` [pixel_count] (optional, adaptive allocation): pixel
+    p takes sample_counts[p] samples instead of `spp`, from absolute
+    sample index sample_base[p] (default 0) on; the counts sum to at most
+    pixel_count * spp. `pool_key_fn(o, d) -> i32 key` re-sorts the lane
+    pool after every bounce with `pool_sort` (lanes a power of two, at
+    least 1024 on CUDA). `sobol` lets lanes whose seed carries
+    SOBOL_SEED_FLAG draw the Sobol sequence."""
     use_nee = integrator in ("nee", "mis")
     use_mis = integrator == "mis"
     mis_single = bool(mis_single) and use_mis
     light_isect = light_isect_fn or intersect_lights
-    if sample_counts is not None or sample_base is not None:
-        raise NotImplementedError(
-            f"adaptive sample_counts are not ported yet: {SAMPLERS_ITEM}"
-        )
-    if light_ris >= 2:
-        raise NotImplementedError(f"light_ris is not ported yet: {SAMPLERS_ITEM}")
-    if pool_key_fn is not None:
-        raise NotImplementedError(
-            f"the pool re-sort (HENJOU_POOL_SORT) is not ported yet: {SAMPLERS_ITEM}"
-        )
     if use_nee and bsdf_eval is None:
         raise ValueError("nee/mis need bsdf_eval")
     if use_mis and bsdf_pdf is None:
@@ -126,6 +152,7 @@ def wavefront_render(
     device = frame.tri_verts.device
     eps_r = ray_eps(frame)  # scene-relative tmin
     lights = light_table(frame) if use_nee else None
+    ris = use_nee and light_ris >= 2
     n_pixels = pixel_count if pixel_count is not None else width * height
     total_samples = n_pixels * spp
     # one-sample MIS paths carry one extra emission-only segment
@@ -140,15 +167,35 @@ def wavefront_render(
         """(chunk-local pixel, spp) -> fresh path state, keyed on the
         global pixel id."""
         gpix = pix + pixel_base
-        st = make_cmj_state(spp_idx + spp_offset, gpix, seed)
+        st = make_cmj_state(spp_idx + spp_offset, gpix, seed, sobol=sobol)
         return camera_rays(cam, width, height, gpix, st)
 
-    # initial fill: pixel-major sample order (sample s -> pixel s % P,
-    # spp s // P)
     ids = torch.arange(lanes, dtype=torch.int64, device=device)
-    pix = ids % n_pixels
-    o, d, st = spawn(pix, ids // n_pixels)
-    valid = ids < total_samples
+    adaptive = sample_counts is not None
+    # the real sample total: the budget, or the adaptive counts' sum, which
+    # stays on the device and rides the loop's read-back
+    actual_total = total_samples
+    if adaptive:
+        counts = torch.as_tensor(sample_counts, device=device).to(torch.int64)
+        incl = torch.cumsum(counts, dim=0)  # inclusive prefix
+        offs = incl - counts
+        base = (torch.as_tensor(sample_base, device=device).to(torch.int64)
+                if sample_base is not None else torch.zeros_like(counts))
+        actual_total_dev = incl[-1]
+
+        def sample_at(s_idx):
+            """sample index -> (chunk-local pixel, absolute spp index);
+            callers gate on s_idx < the counts' sum."""
+            p = torch.clamp(torch.searchsorted(incl, s_idx, right=True), max=n_pixels - 1)
+            return p, torch.clamp(base[p] + s_idx - offs[p], min=0)
+
+        pix, spp0 = sample_at(ids)
+        valid = ids < actual_total_dev
+    else:
+        # pixel-major sample order (sample s -> pixel s % P, spp s // P)
+        pix, spp0 = ids % n_pixels, ids // n_pixels
+        valid = ids < total_samples
+    o, d, st = spawn(pix, spp0)
 
     film = torch.zeros((n_pixels, 11), dtype=torch.float32, device=device)
     n_traces = torch.zeros((), dtype=torch.int64, device=device)
@@ -165,7 +212,7 @@ def wavefront_render(
 
     it = 0
     any_valid = total_samples > 0
-    while it < max_iters and (counter < total_samples or any_valid):
+    while it < max_iters and (counter < actual_total or any_valid):
         # ---- Russian roulette (the draw precedes the trace) ----
         u_rr, st = cmj_1d(st)
         russian_p = thr.amax(dim=-1)
@@ -210,7 +257,13 @@ def wavefront_render(
 
         if use_nee:
             # ---- NEE shadow branch ----
-            l_pos, l_normal, l_emission, l_pdf, l_valid, st = sample_light(frame, st, lights)
+            if ris:
+                # l_pdf_eff divides the contribution, l_pdf weighs MIS
+                l_pos, l_normal, l_emission, l_pdf_eff, l_pdf, l_valid, st = sample_light_ris(
+                    frame, st, hit.position, n, light_ris, lights)
+            else:
+                l_pos, l_normal, l_emission, l_pdf, l_valid, st = sample_light(frame, st, lights)
+                l_pdf_eff = l_pdf
             to_light = l_pos - hit.position
             l_dist = torch.clamp(length(to_light), min=1e-12)
             l_dir = to_light / l_dist[:, None]
@@ -235,10 +288,10 @@ def wavefront_render(
                 w_light = torch.ones_like(l_pdf)
             contrib_nee = (
                 thr * f_l
-                * (g * cos1 / torch.clamp(l_pdf, min=1e-12) * w_light)[:, None]
+                * (g * cos1 / torch.clamp(l_pdf_eff, min=1e-12) * w_light)[:, None]
                 * l_emission
             )
-            ok = alive & ~emit_seg & l_valid & ~shadow_blocked & (l_pdf > 0.0)
+            ok = alive & ~emit_seg & l_valid & ~shadow_blocked & (l_pdf_eff > 0.0)
             lte = lte + torch.where(ok[:, None], contrib_nee, 0.0)
 
         if use_mis and not mis_single:
@@ -326,13 +379,20 @@ def wavefront_render(
 
         # ---- refill finished lanes with fresh samples ----
         rank = torch.cumsum(done.to(torch.int64), dim=0) - 1
-        s_pix = ctr_pix + rank
-        s_spp = torch.full_like(s_pix, ctr_spp)
-        for _ in range(n_wraps):
-            wrap = s_pix >= n_pixels
-            s_pix = s_pix - torch.where(wrap, n_pixels, 0)
-            s_spp = s_spp + wrap.to(torch.int64)
-        can_spawn = done & (s_spp < spp)
+        if adaptive:
+            # the monotonic counter indexes the sample list
+            s_idx = counter + rank
+            can_spawn = done & (s_idx < actual_total_dev)
+            s_pix, s_spp = sample_at(s_idx)
+        else:
+            # (pixel, spp) wrap-counter arithmetic
+            s_pix = ctr_pix + rank
+            s_spp = torch.full_like(s_pix, ctr_spp)
+            for _ in range(n_wraps):
+                wrap = s_pix >= n_pixels
+                s_pix = s_pix - torch.where(wrap, n_pixels, 0)
+                s_spp = s_spp + wrap.to(torch.int64)
+            can_spawn = done & (s_spp < spp)
         s_o, s_d, s_st = spawn(torch.where(can_spawn, s_pix, 0), torch.where(can_spawn, s_spp, 0))
 
         pix = torch.where(can_spawn, s_pix, pix)
@@ -345,8 +405,25 @@ def wavefront_render(
         aov_n = torch.where(donef, 0.0, aov_n)
         depth = torch.where(done, 0, depth)
         valid = torch.where(done, can_spawn, valid)
+        if pool_key_fn is not None:
+            # group coherent outgoing rays, dead lanes last
+            key = torch.where(valid, pool_key_fn(o, d), DEAD_KEY).to(torch.int32)
+            (_, pix, o, d, s_n, s_scr, s_dep, s_img, thr, lte, aov_a, aov_n, depth, vi,
+             prev_pdf, psp) = pool_sort(
+                key.contiguous(), _as_i32(pix), o.contiguous(), d.contiguous(),
+                *(_as_i32(getattr(st, f)) for f in _LANE_FIELDS),
+                thr.contiguous(), lte.contiguous(), aov_a.contiguous(), aov_n.contiguous(),
+                depth.to(torch.int32), valid.to(torch.int32), prev_pdf.contiguous(),
+                prev_spec.to(torch.int32))
+            pix, depth = pix.to(torch.int64), depth.to(torch.int64)
+            st = st._replace(**{f: x.to(torch.int64) & M32 for f, x in zip(
+                _LANE_FIELDS, (s_n, s_scr, s_dep, s_img))})
+            valid, prev_spec = vi != 0, psp != 0
         # the loop's one read-back from the device per iteration
-        n_done, n_valid = torch.stack([done.sum(), valid.sum()]).tolist()
+        reads = [done.sum(), valid.sum()] + ([actual_total_dev] if adaptive else [])
+        n_done, n_valid, *total = torch.stack(reads).tolist()
+        if total:
+            actual_total = total[0]
         any_valid = n_valid > 0
         counter = min(counter + n_done, total_samples)
         ctr_pix += n_done

@@ -4,6 +4,13 @@ Port of henjou_tpu/render.py. With no option file it renders the built-in
 Cornell smoke scene. ``--device`` picks the torch device (default
 ``cuda``; the JAX CLI honours JAX_PLATFORMS for the same purpose); asking
 for CUDA where it is not available is an error.
+
+With ``--device cuda``, more than one visible GPU and ``TPU.multichip``
+"auto" (the default), the CLI starts one worker process per GPU, joined
+in an NCCL group on a free localhost port; the workers shard every spp
+batch over the group, and rank 0 writes the PNGs, checkpoints and stats.
+A process that already belongs to a `torch.distributed` group renders
+its share in that group instead.
 """
 
 from __future__ import annotations
@@ -15,8 +22,7 @@ import logging
 import sys
 
 
-def main(argv=None):
-    logging.basicConfig(level=logging.INFO, format="[%(levelname).1s] %(name)s: %(message)s")
+def _parse(argv):
     ap = argparse.ArgumentParser(description="Henjou renderer (PyTorch/CUDA)")
     ap.add_argument("option", nargs="?", help="render_option.json path")
     ap.add_argument("--spp", type=int, help="override max_spp")
@@ -30,9 +36,68 @@ def main(argv=None):
     ap.add_argument("--profile", type=str, metavar="DIR",
                     help="capture a torch.profiler trace of the render into "
                     "DIR (trace.json.gz for Perfetto, ops.txt, summary.json)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="[%(levelname).1s] %(name)s: %(message)s")
+    args = _parse(argv)
+    n_gpus = _spawn_count(args)
+    if n_gpus > 1:
+        return _spawn(argv, n_gpus)
+    return _run(args)
+
+
+def _spawn_count(args) -> int:
+    """The number of worker processes to start: every visible GPU for
+    ``--device cuda`` with multichip "auto" outside a process group, else
+    0 (render in this process)."""
+    import torch
+    import torch.distributed as dist
+
+    if args.device != "cuda" or not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        return 0
+    if dist.is_available() and dist.is_initialized():
+        return 0
+    from henjou_torch.runtime.options import RenderOption, load_render_option
+
+    opt = load_render_option(args.option) if args.option else RenderOption()
+    return torch.cuda.device_count() if opt.multichip == "auto" else 0
+
+
+def _spawn(argv, n_gpus: int) -> int:
+    """Render with one worker per GPU (rank k on cuda:k)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logging.getLogger("henjou_torch").info("multi-GPU: %d worker processes", n_gpus)
+    mp.spawn(_worker, args=(n_gpus, f"tcp://localhost:{port}", argv), nprocs=n_gpus)
+    return 0
+
+
+def _worker(rank: int, world: int, init_method: str, argv):
+    import torch
+    import torch.distributed as dist
+
+    logging.basicConfig(level=logging.INFO, format=f"[%(levelname).1s] r{rank} %(name)s: "
+                        "%(message)s")
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=init_method, world_size=world, rank=rank)
+    try:
+        args = _parse(argv)
+        args.device = f"cuda:{rank}"
+        _run(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args) -> int:
     from henjou_torch.runtime.renderer import Renderer
+    from henjou_torch.runtime.sharding import world
 
     r = Renderer(device=args.device)
     if args.option:
@@ -67,10 +132,12 @@ def main(argv=None):
     if overrides:
         r.option = dataclasses.replace(r.option, **overrides)
 
-    if args.profile:
+    if args.profile and world()[1] == 0:
         written = _profiled(r, args.profile)
     else:
         written = r.initialize_and_render()
+    if world()[1] != 0:
+        return 0  # rank 0 reports
     print("wrote:", ", ".join(written))
     if args.stats:
         with open(args.stats, "w") as f:

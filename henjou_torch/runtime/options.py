@@ -1,9 +1,8 @@
 """Render options: the same JSON schema as the reference.
 
 Port of henjou_tpu/runtime/options.py: host code, copied. The option
-file's "TPU" section keeps its name (it is the file schema); the port's
-renderer raises NotImplementedError for the values it does not render yet
-(runtime/renderer.py `_check_supported`).
+file's "TPU" section keeps its name (it is the file schema); the port
+renders every value the JAX package's loader accepts.
 
 Parses render_option.json with the reference's section layout
 (include/loader/render_json_loader.h:78-228) into a frozen dataclass

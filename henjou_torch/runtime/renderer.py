@@ -28,10 +28,22 @@ The denoiser runs on the renderer's device: the engine's numpy AOVs go up
 once per frame and the temporal history stays there between frames. A
 failing probe or canary raises; nothing falls back.
 
-Options that select code not ported yet raise NotImplementedError naming
-their ROADMAP Queue 1 item by title (`_check_supported`): ``adaptive``,
-``light_ris``, ``sampler="sobol"`` and ``HENJOU_POOL_SORT=1``. Multi-GPU
-is not ported either.
+The opt-in options render as in the JAX package: ``sampler="sobol"``
+(the seed's tag bit, carried by each renderer's CMJ states rather than a
+process-wide gate), and on the wavefront engine ``light_ris`` (resampled
+NEE lights), ``adaptive`` (a uniform warm-up batch, then deficit-based
+per-pixel counts from `_adaptive_allocation`) and ``HENJOU_POOL_SORT=1``
+(the raw binned kernels with the whole lane pool sorted after every
+bounce). The masked engine ignores ``adaptive`` and ``light_ris``, as
+the JAX package's does.
+
+Multi-GPU is one process per GPU (`runtime/sharding.py`): with
+``multichip="auto"`` and an initialised `torch.distributed` group of more
+than one process, `render_frame` shards every batch's samples over the
+group (process k takes sample indices spp_done + k*cur ..) and sums the
+films with one all-reduce per pixel group; rank 0 decides every deadline
+stop, and only rank 0 finalizes, writes PNGs and checkpoints. Adaptive
+allocation renders unsharded, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,11 +58,12 @@ import numpy as np
 import torch
 
 from henjou_torch.integrator.payload import Sky
-from henjou_torch.integrator.wavefront import SAMPLERS_ITEM
 from henjou_torch.post.png import write_png
 from henjou_torch.post.srgb import float_to_srgb_u8
 from henjou_torch.runtime.camera import Camera, make_camera
+from henjou_torch.runtime import sharding
 from henjou_torch.runtime.options import RenderMode, RenderOption, load_render_option
+from henjou_torch.sampling.cmj import SOBOL_SEED_FLAG
 from henjou_torch.scene.scenedata import (
     DeviceScene,
     SceneData,
@@ -102,6 +115,40 @@ def _swizzled_pixel_order(width: int, height: int, bw: int = 32, bh: int = 16) -
     return np.argsort(key * (bw * bh) + inner, kind="stable").astype(np.int64)
 
 
+def _adaptive_allocation(
+    budget: int, color_sum: np.ndarray, m2: np.ndarray, cnt: np.ndarray,
+    metric: str = "relstd",
+) -> np.ndarray:
+    """Per-pixel sample counts for the next batch (the JAX package's,
+    copied): a deficit-based allocation toward total counts n_p ~ w_p,
+    with w_p = sigma_p / (mean_p + 0.05) (metric "relstd", display-referred
+    error) or w_p = sigma_p ("std", absolute error). Each batch fills
+    max(target - current, 0), so a pixel past its target gets nothing
+    until the rest catch up; weights are clipped to [0.25, 8]x their mean;
+    floor() keeps the sum within `budget`. Only earlier batches' samples
+    steer it, and every pixel divides by its own count, so each pixel's
+    estimate stays a plain mean."""
+    n = np.maximum(cnt, 1.0)
+    mu = (
+        0.2126 * color_sum[:, 0]
+        + 0.7152 * color_sum[:, 1]
+        + 0.0722 * color_sum[:, 2]
+    ) / n
+    var = np.maximum(m2 / n - mu * mu, 0.0)
+    w = np.sqrt(var)
+    if metric == "relstd":
+        w = w / (np.abs(mu) + 0.05)
+    wm = max(float(w.mean()), 1e-12)
+    w = np.clip(w, 0.25 * wm, 8.0 * wm)
+    total = float(cnt.sum()) + float(budget)
+    target = total * w / w.sum()
+    need = np.maximum(target - cnt, 0.0)
+    s = float(need.sum())
+    if s <= 0.0:  # everyone at/over target: fall back to uniform
+        return np.full(cnt.shape, budget // max(cnt.size, 1), np.int32)
+    return np.floor(budget * need / s).astype(np.int32)
+
+
 class Renderer:
     # bigger frames render in pixel chunks of at most this many pixels
     FILM_CHUNK_PIXELS = 1 << 18
@@ -141,6 +188,7 @@ class Renderer:
         # per-phase seconds of scene setup, and one entry per rendered frame
         self.setup_stats: dict = {}
         self.frame_stats: list = []
+        self._warned_adaptive_shard = False
 
     # ---------------- loading ----------------
 
@@ -152,19 +200,6 @@ class Renderer:
     def set_scene(self, scene: SceneData):
         self.scene = scene
         return self
-
-    def _check_supported(self):
-        opt = self.option
-        unsupported = [
-            (opt.adaptive, f"adaptive sampling ({SAMPLERS_ITEM})"),
-            (opt.light_ris >= 2, f"light_ris ({SAMPLERS_ITEM})"),
-            (opt.sampler == "sobol", f"sampler='sobol' ({SAMPLERS_ITEM})"),
-            (os.environ.get("HENJOU_POOL_SORT", "0") == "1",
-             f"HENJOU_POOL_SORT=1 ({SAMPLERS_ITEM})"),
-        ]
-        for bad, what in unsupported:
-            if bad:
-                raise NotImplementedError(f"not ported yet: {what}")
 
     # ---------------- build ----------------
 
@@ -244,6 +279,25 @@ class Renderer:
             *make_binned_intersector(accel), accel.scene_lo, accel.scene_hi
         )
 
+    @staticmethod
+    def _accel_adapters_wavefront(accel, lanes: int):
+        """(intersect_fn, occluded_fn, pool_key_fn) for the wavefront
+        engine. With HENJOU_POOL_SORT=1, a binned pack and a pool of
+        power-of-two lanes (a multiple of 1024): the raw binned kernels
+        and the ray sort key, so the engine sorts its whole pool once per
+        bounce instead of sorting and unsorting around each trace;
+        otherwise `_accel_adapters` and no key."""
+        pool_ok = lanes % 1024 == 0 and (lanes & (lanes - 1)) == 0
+        if accel is not None and pool_ok and os.environ.get("HENJOU_POOL_SORT", "0") == "1":
+            from henjou_torch.accel.pallas_binned import make_binned_intersector
+            from henjou_torch.accel.sorting import ray_sort_key
+
+            lo = accel.scene_lo.to(torch.float32)
+            inv_extent = 1.0 / torch.clamp(accel.scene_hi.to(torch.float32) - lo, min=1e-12)
+            return (*make_binned_intersector(accel),
+                    lambda o, d: ray_sort_key(o, d, lo, inv_extent))
+        return (*Renderer._accel_adapters(accel), None)
+
     # ---------------- per-frame ----------------
 
     def _frame_transforms(self, time_s: float):
@@ -287,8 +341,16 @@ class Renderer:
         return self.option.camera_fov
 
     def _frame_seed(self, frame: int) -> int:
-        """Per-frame CMJ seed; bit 31 is reserved for the Sobol tag."""
-        return (int(self.option.seed) + int(frame)) & 0x7FFFFFFF
+        """Per-frame sampler seed: sampler="sobol" sets the tag bit that
+        routes every draw through the Sobol sequence (SOBOL_SEED_FLAG);
+        "cmj" clears it, whatever the user's seed."""
+        s = (int(self.option.seed) + int(frame)) & 0xFFFFFFFF
+        if self.option.sampler == "sobol":
+            return s | SOBOL_SEED_FLAG
+        return s & 0x7FFFFFFF
+
+    def _sobol(self) -> bool:
+        return self.option.sampler == "sobol"
 
     def frame_scene(self, frame: int):
         """(FrameScene, accel, camera) of `frame`. The accel is reused while
@@ -369,8 +431,14 @@ class Renderer:
 
         With `checkpoint_path`, the sums are saved after every spp batch,
         and a checkpoint of the same frame and size found there is resumed
-        from."""
-        self._check_supported()
+        from.
+
+        On the wavefront engine with ``adaptive``, the first batch is
+        uniform and every later one gives each pixel group's budget out by
+        `_adaptive_allocation` over the sums so far. Sharded (see the
+        module docstring), a batch of `cur` spp per process advances the
+        frame by cur times the group's size, as the JAX package's sharded
+        step does."""
         opt = self.option
         width, height = opt.image_width, opt.image_height
         if opt.render_mode == RenderMode.DENOISE_UPSCALE2X:
@@ -384,6 +452,8 @@ class Renderer:
         engine = self._resolve_engine()
         make_step = self._make_wavefront_step if engine == "wavefront" else self._make_masked_step
         step, groups = make_step(frame_scene, accel, cam, width, height, frame)
+        adaptive = engine == "wavefront" and bool(opt.adaptive)
+        n_dev, rank = self._shards(adaptive)
 
         # color, albedo, normal, the per-sample luminance squares and counts
         sums = [np.zeros((n, 3), np.float32) for _ in range(3)] + \
@@ -405,18 +475,30 @@ class Renderer:
         t0 = time.monotonic()
         stop = False
         while spp_done < opt.max_spp:
-            cur = min(batch, opt.max_spp - spp_done)
+            # spp per process: a batch advances the frame by cur * n_dev
+            cur = min(batch, max(1, -(-(opt.max_spp - spp_done) // n_dev)))
             if engine == "masked" and deadline is not None and spp_done == 0 and est is not None:
                 left = deadline - (time.monotonic() - t0)
-                cur = max(1, min(cur, int(left / max(est * n, 1e-12))))
+                cur = self._rank0(max(1, min(cur, int(left / max(est * n, 1e-12)))), n_dev)
             t_batch = time.monotonic()
             px_done = 0
             for index, arg, npix in groups:
-                if (deadline is not None and spp_done > 0 and est is not None
-                        and time.monotonic() - t0 + est * npix * cur > deadline):
-                    stop = True
-                    break
-                out = step(arg, spp_done, cur)
+                if deadline is not None and spp_done > 0 and est is not None:
+                    stop = bool(self._rank0(
+                        int(time.monotonic() - t0 + est * npix * cur > deadline), n_dev))
+                    if stop:
+                        break
+                kw = {}
+                if adaptive:
+                    color, _, _, m2, cnt = (x[index] for x in sums)
+                    counts = (_adaptive_allocation(npix * cur, color, m2, cnt,
+                                                   metric=opt.adaptive_metric)
+                              if spp_done > 0 else np.full((npix,), cur, np.int32))
+                    kw = dict(counts=torch.from_numpy(counts),
+                              cbase=torch.from_numpy(cnt.astype(np.int32)))
+                out = step(arg, spp_done + rank * cur, cur, **kw)
+                if n_dev > 1:
+                    out = sharding.all_reduce_film(out)
                 for acc, x in zip(sums, out[:5]):
                     acc[index] += x.cpu().numpy()
                 traces += int(out[5])
@@ -429,21 +511,23 @@ class Renderer:
                 log.warning("frame %d: deadline hit at %d/%d spp (+%d/%d pixels of the next "
                             "batch)", frame, spp_done, opt.max_spp, px_done, n)
                 break
-            spp_done += cur
-            if checkpoint_path:
+            spp_done += cur * n_dev
+            if checkpoint_path and rank == 0:
                 # a temp file, then an atomic rename: a kill mid-write
                 # leaves the previous checkpoint whole
                 np.savez(checkpoint_path + ".tmp.npz", frame=frame, spp_done=spp_done,
                          **dict(zip(self._CKPT_SUMS, sums)))
                 os.replace(checkpoint_path + ".tmp.npz", checkpoint_path)
-            if deadline is not None and time.monotonic() - t0 > deadline:
+            if deadline is not None and self._rank0(
+                    int(time.monotonic() - t0 > deadline), n_dev):
                 log.warning("frame %d: deadline hit at %d/%d spp", frame, spp_done, opt.max_spp)
                 break
         render_s = time.monotonic() - t0
-        log.info("frame %d %s[%s]: %.2fs (%d spp, %.1f Mtraces, %.1f Mrays/s)", frame, engine,
-                 self.integrator if engine == "masked" or self.integrator != "mis"
-                 else opt.mis_mode, render_s, spp_done, traces / 1e6,
-                 traces / max(render_s, 1e-9) / 1e6)
+        log.info("frame %d %s[%s%s%s]: %.2fs (%d spp, %.1f Mtraces, %.1f Mrays/s)", frame,
+                 engine, self.integrator if engine == "masked" or self.integrator != "mis"
+                 else opt.mis_mode, "+adaptive" if adaptive else "",
+                 f" x{n_dev} processes" if n_dev > 1 else "", render_s, spp_done,
+                 traces / 1e6, traces / max(render_s, 1e-9) / 1e6)
         color, albedo, normal, m2, cnt = sums
         inv = (1.0 / np.maximum(cnt, 1.0))[:, None].astype(np.float32)
         mu = color * inv
@@ -464,6 +548,28 @@ class Renderer:
             out.update(variance=var_mean.reshape(height, width),
                        count=cnt.reshape(height, width))
         return out
+
+    def _shards(self, adaptive: bool):
+        """(process count, this process's rank) the frame's samples are
+        sharded over: the `torch.distributed` group with
+        ``multichip="auto"``, unless adaptive allocation renders
+        unsharded; else (1, 0)."""
+        size, rank = sharding.world()
+        if size <= 1 or self.option.multichip != "auto":
+            return 1, 0
+        if adaptive:
+            if not self._warned_adaptive_shard:
+                log.info("adaptive sampling: multi-GPU spp sharding disabled "
+                         "(per-batch count lists are planned on the host)")
+                self._warned_adaptive_shard = True
+            return 1, 0
+        return size, rank
+
+    @staticmethod
+    def _rank0(value: int, n_dev: int) -> int:
+        """Rank 0's `value` when sharded over n_dev > 1 processes (every
+        process must take the same batches and groups), else `value`."""
+        return sharding.broadcast_int(value) if n_dev > 1 else value
 
     def _resolve_engine(self) -> str:
         """The engine of `option.engine`: "auto" is the wavefront engine on
@@ -486,8 +592,10 @@ class Renderer:
     def _make_wavefront_step(self, frame_scene, accel, cam, width, height, frame):
         """The wavefront engine's (step, groups) for `render_frame`: groups
         are contiguous pixel chunks, and `step((base, count), spp_start,
-        spp_count)` renders one through `wavefront_render` (persistent lanes
-        that refill as paths end) and returns its film's sums and traces."""
+        spp_count, counts=None, cbase=None)` renders one through
+        `wavefront_render` (persistent lanes that refill as paths end;
+        `counts`/`cbase` its adaptive sample counts and bases) and returns
+        its film's sums and traces."""
         from henjou_torch.integrator import wavefront
 
         opt = self.option
@@ -496,20 +604,21 @@ class Renderer:
         lanes = min(1 << 16, max(1 << 12, 1 << (width * height - 1).bit_length()))
         mis_single = integrator == "mis" and opt.mis_mode != "ref"
         clamp = self._firefly_clamp()
-        intersect_fn, occluded_fn = self._accel_adapters(accel)
+        intersect_fn, occluded_fn, pool_key_fn = self._accel_adapters_wavefront(accel, lanes)
         light_isect_fn = (self.light_intersector(frame_scene)
                           if integrator == "mis" and not mis_single else None)
         seed = self._frame_seed(frame)
 
-        def step(chunk, spp_start, spp_count):
+        def step(chunk, spp_start, spp_count, counts=None, cbase=None):
             base, count = chunk
             film = wavefront.wavefront_render(
                 frame_scene, self.sky, cam, width, height, spp_count,
                 self.bsdf_sample, bsdf_eval=self.bsdf_eval,
                 bsdf_pdf=self.bsdf_pdf, integrator=integrator, seed=seed, lanes=lanes,
-                intersect_fn=intersect_fn, occluded_fn=occluded_fn,
+                intersect_fn=intersect_fn, occluded_fn=occluded_fn, pool_key_fn=pool_key_fn,
                 light_isect_fn=light_isect_fn, spp_offset=spp_start, mis_single=mis_single,
-                pixel_base=base, pixel_count=count, firefly_clamp=clamp,
+                pixel_base=base, pixel_count=count, sample_counts=counts, sample_base=cbase,
+                firefly_clamp=clamp, light_ris=opt.light_ris, sobol=self._sobol(),
             )
             return film.color, film.albedo, film.normal, film.m2, film.count, film.n_traces
 
@@ -554,7 +663,7 @@ class Renderer:
             m2 = torch.zeros_like(c[:, 0])
             traces = torch.zeros((), dtype=torch.int64, device=self.device)
             for i in range(spp_count):
-                state = make_cmj_state(spp_start + i, pixel_idx, seed)
+                state = make_cmj_state(spp_start + i, pixel_idx, seed, sobol=self._sobol())
                 o, d, state = camera_rays(cam, width, height, pixel_idx, state)
                 res = self._integrate(frame_scene, o, d, state, *fns)
                 lum = res.lte[:, 0] * 0.2126 + res.lte[:, 1] * 0.7152 + res.lte[:, 2] * 0.0722
@@ -606,6 +715,8 @@ class Renderer:
         frame inside the option's time budget: render (checkpointed after
         every spp batch), finalize in the configured mode and write one PNG
         per frame (four per frame in Debug mode). Returns the written
+        paths. In a `torch.distributed` group only rank 0 finalizes and
+        writes; the other processes render their shares and return no
         paths."""
         overall_t0 = time.monotonic()
         if self.device.type == "cuda" and os.environ.get("HENJOU_SKIP_CANARY", "0") != "1":
@@ -619,10 +730,10 @@ class Renderer:
         if option_path:
             self.load_render_option(option_path)
             self._load_scene_from_option()
-        self._check_supported()
         if self.device_scene is None:
             self.build()
         opt = self.option
+        writer = sharding.world()[1] == 0
         budget_s = opt.time_limit * 60.0
         stamp = time.strftime("%Y%m%d-%H%M%S") + "_" if opt.use_date else ""
 
@@ -634,6 +745,8 @@ class Renderer:
         for frame in range(opt.start_frame, opt.end_frame):
             t0 = time.monotonic()
             if opt.render_mode == RenderMode.DEBUG:
+                if not writer:
+                    continue
                 dbg = self.render_debug(frame)
                 for key in ("position", "basecolor", "normal", "texcoord"):
                     img = dbg[key]
@@ -655,6 +768,10 @@ class Renderer:
                 # the first frame's overhead is unknown: under-allocate it
                 deadline *= 0.6
             aovs = self.render_frame(frame, deadline=deadline, checkpoint_path=ckpt)
+            if not writer:
+                self.frame_stats.append(dict(frame=frame, spp=aovs["spp_done"],
+                                             render_s=aovs["render_s"]))
+                continue
             if os.path.exists(ckpt):
                 os.remove(ckpt)  # frame complete
             t_fin = time.monotonic()

@@ -11,9 +11,13 @@ product of two u32 values can reach 2^64 and overflow int64, so `_mul`
 splits one factor into 16-bit halves and keeps every partial product
 below 2^48: the result is exact without relying on signed wraparound.
 
-Only the CMJ sampler is ported; the Owen-scrambled Sobol sampler
-(``sampler="sobol"``) is ROADMAP Queue 1, opt-in samplers and
-allocation; the renderer raises for it.
+A state made with ``sobol=True`` draws through the Owen-scrambled Sobol
+sampler (`sampling/sobol.py`) on the lanes whose seed carries
+SOBOL_SEED_FLAG, and the CMJ values on the others, as the JAX package's
+`cmj_2d` does when its process-wide `set_sobol_enabled(True)` gate is on.
+Here the choice rides on the state (a static field that every draw keeps),
+so two renderers in one process cannot share it. With ``sobol=False``
+(the default) the Sobol pair is not computed at all.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ import torch
 CMJ_M = 4
 CMJ_N = 4
 M32 = 0xFFFFFFFF
+# seed tag bit selecting the Sobol sampler for a lane (the low 31 seed
+# bits mean the same in both samplers)
+SOBOL_SEED_FLAG = 0x80000000
 
 
 def _mul(a, b):
@@ -45,13 +52,15 @@ class CMJState(NamedTuple):
     scramble: torch.Tensor  # global seed
     depth: torch.Tensor  # dimension counter, bumped per draw
     image_idx: torch.Tensor  # pixel index
+    # static: tagged lanes draw Sobol values (see the module docstring)
+    sobol: bool = False
 
 
 def _u32(x, device=None):
     return torch.as_tensor(x, device=device).to(torch.int64) & M32
 
 
-def make_cmj_state(n_spp, image_idx, seed=0) -> CMJState:
+def make_cmj_state(n_spp, image_idx, seed=0, sobol: bool = False) -> CMJState:
     image_idx = _u32(image_idx)
     n_spp = _u32(n_spp, image_idx.device)
     shape = torch.broadcast_shapes(n_spp.shape, image_idx.shape)
@@ -61,6 +70,7 @@ def make_cmj_state(n_spp, image_idx, seed=0) -> CMJState:
         scramble=_u32(seed, image_idx.device).expand(shape) + zero,
         depth=zero,
         image_idx=image_idx.expand(shape) + zero,
+        sobol=bool(sobol),
     )
 
 
@@ -149,6 +159,14 @@ def cmj_2d(state: CMJState):
         state.scramble,
     )
     fx, fy = _cmj(index, scramble)
+    if state.sobol:
+        from henjou_torch.sampling.sobol import sobol_pair
+
+        sx, sy = sobol_pair(state.n_spp, state.image_idx, state.depth,
+                            state.scramble & (M32 ^ SOBOL_SEED_FLAG))
+        tag = (state.scramble & SOBOL_SEED_FLAG) != 0
+        fx = torch.where(tag, sx, fx)
+        fy = torch.where(tag, sy, fy)
     new_state = state._replace(depth=(state.depth + 1) & M32)
     return torch.stack([fx, fy], dim=-1), new_state
 

@@ -17,9 +17,11 @@ BSDF-branch ray would hit: `intersect_lights` answers with dense
 Moller-Trumbore against the emissive triangles in chunks of LIGHT_CHUNK,
 and `make_binned_light_intersector` with the binned intersector
 (``csrc/binned.cu`` on CUDA tensors) over the emissive subset, which the
-renderer takes above 512 emissive triangles. Resampled light selection
-(RIS, ``light_ris``) is not ported (ROADMAP Queue 1, opt-in samplers and
-allocation).
+renderer takes above 512 emissive triangles.
+
+`sample_light_ris` is resampled light selection (``light_ris`` m >= 2 on
+the wavefront engine): m candidates from `sample_light`, one kept in
+proportion to its unshadowed contribution at the shading point.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from henjou_torch.accel.bruteforce import _mt_chunk
 from henjou_torch.accel.pallas_binned import intersect_binned, pack_binned_np
 from henjou_torch.math.vec import cross, length, normalize
-from henjou_torch.sampling.cmj import CMJState, cmj_1d, cmj_2d
+from henjou_torch.sampling.cmj import M32, CMJState, cmj_1d, cmj_2d
 from henjou_torch.scene.scenedata import FrameScene
 
 _LUM = (0.2126, 0.7152, 0.0722)
@@ -146,6 +148,58 @@ def sample_light(frame: FrameScene, state: CMJState, table: Optional[LightTable]
     pdf = sel_p / torch.clamp(_areas(v), min=1e-12)
     valid = torch.full((r,), count > 0.5, dtype=torch.bool, device=p.device)
     return position, normal, emission, pdf, valid, state
+
+
+def sample_light_ris(frame: FrameScene, state: CMJState, shade_pos: torch.Tensor,
+                     shade_n: torch.Tensor, m: int, table: Optional[LightTable] = None):
+    """Resampled importance sampling over `m` light candidates from
+    `sample_light`, each weighted by its unshadowed contribution
+    p_hat = luminance(emission) |cos_surf| |cos_light| / dist^2 over its
+    pdf; one is kept by a CMJ draw against the weights' running sum.
+    Candidate j takes the draws at dimension counters depth + 2j and
+    depth + 2j + 1, as m calls of `sample_light` in turn would (the JAX
+    package's order), so all m are drawn in one call over m x R lanes.
+
+    Returns (position[R,3], normal[R,3], emission[R,3], pdf_eff[R],
+    pdf_src[R], valid[R], state): divide the contribution by pdf_eff
+    (p_hat_k m / sum of the weights), and weight MIS with pdf_src (the
+    kept candidate's plain area pdf; any partition of unity keeps the
+    estimate unbiased). valid is False where every weight is 0."""
+    if table is None:
+        table = light_table(frame)
+    r = shade_pos.shape[0]
+    step = 2 * torch.arange(m, device=shade_pos.device).repeat_interleave(r)
+    lanes = state._replace(n_spp=state.n_spp.repeat(m), scramble=state.scramble.repeat(m),
+                           depth=(state.depth.repeat(m) + step) & M32,
+                           image_idx=state.image_idx.repeat(m))
+    *cand, _ = sample_light(frame, lanes, table)
+    # candidate-major [m*R(,3)] -> [R,m(,3)]
+    pos, nrm, emi, pdf, vld = (x.reshape(m, r, *x.shape[1:]).transpose(0, 1) for x in cand)
+    state = state._replace(depth=(state.depth + 2 * m) & M32)
+
+    to_l = pos - shade_pos[:, None, :]
+    d2 = torch.clamp((to_l * to_l).sum(-1), min=1e-12)
+    ldir = to_l / torch.sqrt(d2)[..., None]
+    cos1 = torch.abs((ldir * shade_n[:, None, :]).sum(-1))
+    cos2 = torch.abs((-ldir * nrm).sum(-1))
+    lum = emi[..., 0] * _LUM[0] + emi[..., 1] * _LUM[1] + emi[..., 2] * _LUM[2]
+    p_hat = lum * cos1 * cos2 / d2
+
+    w = torch.where(pdf > 0.0, p_hat / torch.clamp(pdf, min=1e-30), 0.0)
+    wsum = w.sum(1)
+    u, state = cmj_1d(state)
+    cdf = torch.cumsum(w, dim=1)
+    k = torch.clamp((cdf < (u * wsum)[:, None]).sum(1), 0, m - 1)[:, None]
+
+    def pick(x):
+        """The kept candidate's entry of x [R,m] or [R,m,3]."""
+        idx = k if x.dim() == 2 else k[:, :, None].expand(-1, 1, x.shape[2])
+        return torch.gather(x, 1, idx)[:, 0]
+
+    p_hat_k = pick(p_hat)
+    pdf_eff = p_hat_k * m / torch.clamp(wsum, min=1e-30)
+    valid = pick(vld) & (wsum > 0.0)
+    return pick(pos), pick(nrm), pick(emi), pdf_eff, pick(pdf), valid, state
 
 
 def light_pdf(frame: FrameScene, prim: torch.Tensor, table: Optional[LightTable] = None):

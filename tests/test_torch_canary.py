@@ -75,7 +75,7 @@ def test_initialize_and_render_runs_the_canary_first(monkeypatch, device, skip, 
     def stop(self):
         raise _Stop
 
-    monkeypatch.setattr(rmod.Renderer, "_check_supported", stop)
+    monkeypatch.setattr(rmod.Renderer, "build", stop)
     if skip is None:
         monkeypatch.delenv("HENJOU_SKIP_CANARY", raising=False)
     else:

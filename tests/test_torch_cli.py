@@ -68,22 +68,36 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize(
-    "override",
+    "tpu, env",
     [
-        dict(adaptive=True, engine="masked"),
-        dict(adaptive=True),
-        dict(sampler="sobol"),
-        dict(light_ris=4),
+        (dict(sampler="sobol"), {}),
+        (dict(light_ris=8), {}),
+        (dict(adaptive=True, spp_batch=1), {}),
+        (dict(adaptive=True, light_ris=4, engine="masked"), {}),
+        ({}, {"HENJOU_POOL_SORT": "1"}),
     ],
 )
-def test_unported_options_raise(override, monkeypatch):
+def test_cli_renders_opt_in_option(tpu, env, tmp_path, monkeypatch):
+    """Each opt-in key of the option file's TPU section (and the pool
+    re-sort's environment variable) renders through the CLI on the CPU: a
+    finite, lit PNG at the asked spp."""
+    import json
+
     monkeypatch.chdir(ROOT)
-    r = Renderer(device="cpu")
-    r.load_render_option(GALLERY)
-    r.option = dataclasses.replace(r.option, **override)
-    r._load_scene_from_option()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.initialize_and_render()
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with open(GALLERY) as f:
+        opt = json.load(f)
+    opt["TPU"].update(tpu)
+    path = tmp_path / "opt.json"
+    path.write_text(json.dumps(opt))
+    out, stats = str(tmp_path / "img"), str(tmp_path / "stats.json")
+    assert render.main([str(path), "--device", "cpu", "--size", "32x18", "--spp", "2",
+                        "--out", out, "--stats", stats]) == 0
+    assert read_png(out + "_000.png").mean() > 10
+    with open(stats) as f:
+        fr = json.load(f)["frames"][0]
+    assert fr["film_finite"] and fr["spp"] == 2 and fr["n_traces"] > 0
 
 
 def test_cli_renders_mis_ref(tmp_path, monkeypatch):
@@ -131,7 +145,9 @@ def test_renderer_mis_ref_takes_binned_light_query(monkeypatch):
 
 def test_masked_engine_still_raises(monkeypatch):
     """The masked engine renders the gallery (a film without the variance
-    and count AOVs), and still raises for an option not ported yet."""
+    and count AOVs), and with sampler="sobol" renders the Sobol streams
+    (it raised before the sampler was ported; JAX's masked engine takes
+    the sampler too)."""
     monkeypatch.chdir(ROOT)
     r = Renderer(device="cpu")
     r.load_render_option(GALLERY)
@@ -142,8 +158,8 @@ def test_masked_engine_still_raises(monkeypatch):
     assert out["spp_done"] == 1 and out["n_traces"] > 0 and "variance" not in out
     assert np.isfinite(out["color"]).all() and out["color"].shape == (8, 16, 3)
     r.option = dataclasses.replace(r.option, sampler="sobol")
-    with pytest.raises(NotImplementedError, match="sampler='sobol' \\(ROADMAP Queue 1"):
-        r.render_frame(0)
+    sob = r.render_frame(0)
+    assert np.isfinite(sob["color"]).all() and not np.array_equal(sob["color"], out["color"])
 
 
 def test_import_never_pulls_in_jax():

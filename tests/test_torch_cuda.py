@@ -1,8 +1,9 @@
-"""The CUDA kernels against their plain versions, on the card: 157 cases,
+"""The CUDA kernels against their plain versions, on the card: 159 cases,
 52 of them the cluster walk of the binned, flat, two-level and
 matrix-form kernels, 7 the denoiser's tensor ops on CUDA against the CPU,
-2 the sorted binned trace at the masked engine's 131,072-ray tile and 1
-the animated pack's refresh on CUDA against the CPU.
+2 the sorted binned trace at the masked engine's 131,072-ray tile, 1
+the animated pack's refresh on CUDA against the CPU, 1 the Sobol draws
+on CUDA against the CPU and 1 the pool re-sort's 27-column sort.
 
 These need an NVIDIA GPU and nvcc; without them they skip. The tests
 directory's conftest imports jax, which the GPU machine may not have, so
@@ -507,3 +508,45 @@ def test_denoiser_on_cuda_matches_cpu(cuda, name):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_sobol_draws_on_cuda_match_cpu(cuda):
+    """Tagged and untagged CMJ states, three draws deep, bit-equal on the
+    card and on the CPU (integer hashing; the f32 scale is exact)."""
+    from henjou_torch.sampling import cmj
+
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    spp = torch.from_numpy(rng.integers(0, 4096, n))
+    pix = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.int64))
+    seed = torch.from_numpy(rng.integers(0, 1 << 31, n) | np.where(np.arange(n) % 2 == 0,
+                                                                    cmj.SOBOL_SEED_FLAG, 0))
+    states = {dev: cmj.make_cmj_state(spp.to(dev), pix.to(dev), seed.to(dev), sobol=True)
+              for dev in ("cpu", cuda)}
+    for _ in range(3):
+        want, states["cpu"] = cmj.cmj_2d(states["cpu"])
+        got, states[cuda] = cmj.cmj_2d(states[cuda])
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+def test_pool_sort_27_columns_matches_plain(cuda):
+    """The wavefront pool re-sort's call: 65,536 lanes, the key and 27
+    payload columns ([n] and [n, 3] planes of i32 and f32), so one network
+    launch and one gather launch in one wrapper call; bit-equal to the
+    stable argsort."""
+    n = 1 << 16
+    rng = np.random.default_rng(27)
+    key = torch.from_numpy(rng.integers(0, 1 << 24, n).astype(np.int32))
+    key[rng.uniform(size=n) < 0.3] = (1 << 30) - 1  # dead lanes
+    shapes = [(n,), (n, 3), (n, 3), (n,), (n,), (n,), (n,), (n, 3), (n, 3), (n, 3), (n, 3),
+              (n,), (n,), (n,), (n,)]
+    planes = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) if i % 2 else
+              torch.from_numpy(rng.integers(-2**31, 2**31, s, dtype=np.int64).astype(np.int32))
+              for i, s in enumerate(shapes)]
+    assert sum(1 if p.dim() == 1 else p.shape[1] for p in planes) == 27
+    before = bitonic.LAUNCHES
+    got = bitonic.bitonic_sort(key.to(cuda), *(p.to(cuda) for p in planes))
+    torch.cuda.synchronize()
+    assert bitonic.LAUNCHES == before + 1
+    for g, w in zip(got, bitonic.bitonic_sort_plain(key, *planes)):
+        assert torch.equal(g.cpu(), w)
