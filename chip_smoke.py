@@ -130,7 +130,18 @@ prints no result. Phases, each of which raises on failure:
     traces equal;
 23. two processes in a gloo group on ``cuda:0`` shard the gallery's 4
     spp (512x288, ``spp_batch=1``) against one process: RMSE at most 1e-5,
-    counts and traces equal (NCCL refuses two ranks on one card).
+    counts and traces equal (NCCL refuses two ranks on one card); then the
+    same processes render an adaptive frame (64x36, 4 spp in 1-spp
+    batches, not sharded) through ``initialize_and_render`` with one
+    checkpoint path: rank 1 renders 0 spp and writes no checkpoint, rank 0
+    writes it once per batch, none is left, and rank 0's film equals one
+    process's (RMSE at most 1e-5, counts and traces equal);
+24. the public API: ``cmj_3d`` and ``cmj_4d`` on 65,536 states (the Sobol
+    tag on half) bit-equal to the CPU, ``sample_atlas`` on CUDA within
+    1e-6 of the CPU, ``wavefront_pathtrace`` on the gallery with its
+    default intersector (binned inside the bitonic sorted wrapper) against
+    the plain versions (64x36, 4 spp, 4096 lanes, as phase 6), then at
+    512x288, 4 spp, 65,536 lanes with spp/s and Mrays/s.
 
 Launch counters are zeroed just before, and read just after, each path
 that drives kernels through a user's entry point: phase 7's kernel
@@ -140,12 +151,13 @@ finalize probes included), phases 11-12 (the scale path: bitonic,
 binned and the two-level kernel), and each of this slice's paths on its
 own: phase 16 (OBJ), each masked render of phase 17 (not its wavefront
 twins), phase 18 (masked at contest scale) and phase 19's renders (not
-its comparisons), and phases 20-23: each option's render (Sobol, RIS,
+its comparisons), and phases 20-24: each option's render (Sobol, RIS,
 adaptive, the pool re-sort, whose bitonic launches are all 27-column
-pool sorts) and the two sharding processes' renders, summed. Each kernel
+pool sorts), the two sharding processes' renders, summed, and phase 24's
+full-size `wavefront_pathtrace` (``api``). Each kernel
 of a path must have grown there. The kernels line reports, as
 `launches`, the bitonic and binned counts of the main path, with each of
-phases 16-23's under `launches_by_path`; the
+phases 16-24's under `launches_by_path`; the
 two-level kernel's of phases 11-12, the flat and matrix kernels' of
 phase 7, and the network kernels' of
 phase 13 (its tools' rows are that path). The line before the last is the
@@ -1259,12 +1271,51 @@ def phase_pool_sort(dev, zero, counts):
 
 SHARD_WORLD = 2
 SHARD_SPP = 4
+ADAPTIVE_SIZE = (64, 36)
+
+
+def _adaptive_renderer(dev, out_dir):
+    """Phase 23's adaptive frame: the gallery at ADAPTIVE_SIZE, SHARD_SPP
+    spp in 1-spp batches, PNG and checkpoint under `out_dir`."""
+    return _renderer(dev, GALLERY, max_spp=SHARD_SPP, spp_batch=1, adaptive=True,
+                     image_width=ADAPTIVE_SIZE[0], image_height=ADAPTIVE_SIZE[1],
+                     image_directory=out_dir, image_name="adaptive")
+
+
+def _adaptive_frame(dev, out_dir):
+    """`initialize_and_render` of the adaptive frame in the current group,
+    the canary skipped (the main path runs it): (this process's spp, its
+    np.savez calls on the checkpoint path, the film it rendered or
+    None)."""
+    r = _adaptive_renderer(dev, out_dir)
+    films, saves = [], []
+    render_frame, savez = r.render_frame, np.savez
+
+    def recorded_render(*a, **kw):
+        films.append(render_frame(*a, **kw))
+        return films[-1]
+
+    def recorded_savez(path, *a, **kw):
+        if ".ckpt.npz" in str(path):
+            saves.append(str(path))
+        return savez(path, *a, **kw)
+
+    r.render_frame, np.savez = recorded_render, recorded_savez
+    os.environ["HENJOU_SKIP_CANARY"] = "1"
+    try:
+        r.initialize_and_render()
+    finally:
+        np.savez = savez
+        os.environ.pop("HENJOU_SKIP_CANARY")
+    return r.frame_stats[0]["spp"], len(saves), films[0] if films else None
 
 
 def _shard_worker(rank, store, out_dir, device, size):
     """One of phase 23's processes: joins the gloo group and renders its
-    share of the gallery's SHARD_SPP spp at `size` on `device`; saves the
-    film and its launch counts."""
+    share of the gallery's SHARD_SPP spp at `size` on `device`, then the
+    adaptive frame through `initialize_and_render`; saves the film and
+    its launch counts, and the adaptive frame's spp, checkpoint writes and
+    film."""
     import torch.distributed as dist
 
     from henjou_torch.accel import bitonic, pallas_binned
@@ -1279,10 +1330,15 @@ def _shard_worker(rank, store, out_dir, device, size):
         out = r.render_frame(0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        launches = dict(bitonic=bitonic.LAUNCHES, binned=pallas_binned.LAUNCHES)
+        spp, saves, film = _adaptive_frame(dev, out_dir)
+        adaptive = {} if film is None else dict(adaptive_color=film["color"],
+                                                 adaptive_count=film["count"],
+                                                 adaptive_traces=film["n_traces"])
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), color=out["color"],
                  count=out["count"], traces=out["n_traces"], spp=out["spp_done"],
-                 render_s=out["render_s"], bitonic=bitonic.LAUNCHES,
-                 binned=pallas_binned.LAUNCHES)
+                 render_s=out["render_s"], adaptive_spp=spp, adaptive_saves=saves,
+                 **launches, **adaptive)
     finally:
         dist.destroy_process_group()
 
@@ -1292,8 +1348,13 @@ def phase_sharded(dev, tmp, size=GALLERY_SIZE):
     spp (512x288, SHARD_SPP spp, spp_batch 1: process k takes sample k of
     every pair) against one process: per-pixel RMSE at most
     TOL_SHARD_RMSE, counts and traces equal. NCCL refuses two ranks on one
-    card, so the film sums go through the CPU. Returns the launches summed
-    over both processes."""
+    card, so the film sums go through the CPU. Then, in the same
+    processes, an adaptive frame (not sharded) through
+    `initialize_and_render` with the checkpoint path both share: rank 1
+    renders 0 spp and writes no checkpoint, rank 0 writes it once per
+    batch, none is left after the frame, and rank 0's film equals one
+    process's within TOL_SHARD_RMSE, counts and traces equal. Returns the
+    sharded render's launches summed over both processes."""
     import torch.multiprocessing as mp
 
     out_dir = os.path.join(tmp, "sharded")
@@ -1318,7 +1379,111 @@ def phase_sharded(dev, tmp, size=GALLERY_SIZE):
     log(f"[sharded] one process: render {one['render_s']:.3f} s "
         f"({SHARD_SPP / one['render_s']:.3f} spp/s); two processes' wall {wall:.2f} s "
         "(process start included)")
+    r0, r1 = ranks
+    left = [f for f in os.listdir(out_dir) if f.endswith(".ckpt.npz")]
+    if (int(r1["adaptive_spp"]) != 0 or int(r1["adaptive_saves"]) != 0
+            or "adaptive_color" in r1 or int(r0["adaptive_saves"]) != SHARD_SPP or left):
+        raise AssertionError(
+            f"[sharded adaptive] rank 1: {int(r1['adaptive_spp'])} spp, "
+            f"{int(r1['adaptive_saves'])} checkpoint writes; rank 0: "
+            f"{int(r0['adaptive_saves'])} writes (want {SHARD_SPP}); left behind: {left}")
+    want = _adaptive_renderer(dev, os.path.join(tmp, "adaptive_one")).render_frame(0)
+    rmse = float(np.sqrt(((r0["adaptive_color"] - want["color"]) ** 2).mean()))
+    if (rmse > TOL_SHARD_RMSE or not np.array_equal(r0["adaptive_count"], want["count"])
+            or int(r0["adaptive_traces"]) != want["n_traces"]):
+        raise AssertionError(f"[sharded adaptive] rank 0: RMSE {rmse} (limit {TOL_SHARD_RMSE}), "
+                             f"traces {int(r0['adaptive_traces'])} against {want['n_traces']}")
+    log(f"[sharded adaptive] {ADAPTIVE_SIZE[0]}x{ADAPTIVE_SIZE[1]}, {SHARD_SPP} spp: rank 0 "
+        f"rendered it alone ({int(r0['adaptive_saves'])} checkpoint writes), rank 1 0 spp and "
+        f"no writes, no checkpoint left; rank 0 against one process: RMSE {rmse:.3g}, counts "
+        "and traces equal")
     return {k: int(sum(got[k] for got in ranks)) for k in ("bitonic", "binned")}
+
+
+API_LANES = 1 << 16
+# sample_atlas on CUDA against the CPU: the same gathers and bilinear
+# weights, which the two devices may round differently in the last ulp
+TOL_ATLAS = 1e-6
+
+
+def phase_api(dev, zero, counts):
+    """Phase 24: the public API on the card. `cmj_3d` and `cmj_4d` on
+    API_LANES states (Sobol tag on half) bit-equal to the CPU;
+    `sample_atlas` on CUDA against the CPU within TOL_ATLAS, tex_id -1 on
+    some lanes; `wavefront_pathtrace` on the gallery with its default
+    intersector (a pack given: binned inside the bitonic sorted wrapper)
+    against the plain versions passed explicitly (64x36, 4 spp, 4096
+    lanes, phase 6's limits); then the kernels alone at 512x288, 4 spp,
+    65,536 lanes, counted. Returns that render's launches."""
+    from henjou_torch.accel import bitonic
+    from henjou_torch.accel.pallas_binned import intersect_binned_plain, make_binned_intersector
+    from henjou_torch.accel.sorting import make_bitonic_sorted_intersector
+    from henjou_torch.integrator.wavefront import wavefront_pathtrace
+    from henjou_torch.sampling import cmj_3d, cmj_4d, make_cmj_state
+    from henjou_torch.sampling.cmj import SOBOL_SEED_FLAG
+    from henjou_torch.texture.atlas import build_atlas, sample_atlas
+    from henjou_torch.texture.texture import TexType, Texture
+
+    rng = np.random.default_rng(24)
+    n = API_LANES
+    seed = rng.integers(0, 1 << 31, n) | np.where(np.arange(n) % 2 == 0, SOBOL_SEED_FLAG, 0)
+    args = [torch.from_numpy(x) for x in (rng.integers(0, 4096, n),
+                                          rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+                                              np.int64), seed)]
+    for draw in (cmj_3d, cmj_4d):
+        on_cpu = make_cmj_state(*args, sobol=True)
+        on_dev = make_cmj_state(*(a.to(dev) for a in args), sobol=True)
+        for _ in range(2):
+            want, on_cpu = draw(on_cpu)
+            got, on_dev = draw(on_dev)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"[api] {draw.__name__} on CUDA differs from the CPU")
+    log(f"[api] cmj_3d, cmj_4d: {n} states x 2 draws, CUDA bit-equal to the CPU")
+    texs = [Texture(name=f"t{k}", data=rng.uniform(0, 1, (h, w, 4)).astype(np.float32),
+                    tex_type=TexType.NON_COLOR) for k, (h, w) in enumerate(((64, 48), (17, 130)))]
+    tex_id = torch.from_numpy(rng.integers(-1, len(texs), n))
+    u, v = (torch.from_numpy(rng.uniform(-2, 2, n).astype(np.float32)) for _ in range(2))
+    want = sample_atlas(build_atlas(texs, "cpu"), tex_id, u, v)
+    got = sample_atlas(build_atlas(texs, dev), tex_id.to(dev), u.to(dev), v.to(dev)).cpu()
+    err = float((got - want).abs().max())
+    if err > TOL_ATLAS:
+        raise AssertionError(f"[api] sample_atlas on CUDA: max abs err {err} > {TOL_ATLAS}")
+    log(f"[api] sample_atlas: {n} lanes, CUDA against the CPU max abs err {err:.3g}")
+
+    r = _renderer(dev, GALLERY)
+    fs, accel, cam = r.frame_scene(0)
+    if accel is None:
+        raise AssertionError("[api] the gallery has no binned pack")
+    plain, _ = make_bitonic_sorted_intersector(
+        *make_binned_intersector(accel, intersect=intersect_binned_plain), accel.scene_lo,
+        accel.scene_hi, sort=bitonic.bitonic_sort_plain, unsort=bitonic.bitonic_unsort_plain)
+
+    def render(w, h, lanes, **kw):
+        t0 = time.monotonic()
+        film = wavefront_pathtrace(fs, r.sky, cam, w, h, 4, r.bsdf_sample,
+                                   seed=r._frame_seed(0), lanes=lanes, **kw)
+        torch.cuda.synchronize()
+        return film, time.monotonic() - t0
+
+    films = [render(64, 36, 4096, accel=accel)[0], render(64, 36, 4096, intersect_fn=plain)[0]]
+    a, b = (f.color / f.count.clamp(min=1)[:, None] for f in films)
+    rmse = float(torch.sqrt(((a - b) ** 2).mean()))
+    if not torch.isfinite(a).all() or not torch.equal(films[0].count, films[1].count):
+        raise AssertionError("[api] wavefront_pathtrace: kernel film not finite or counts differ")
+    if rmse > TOL_ENGINE_RMSE:
+        raise AssertionError(f"[api] wavefront_pathtrace RMSE {rmse} > {TOL_ENGINE_RMSE}")
+    log(f"[api] wavefront_pathtrace 64x36 4 spp: kernels vs plain versions RMSE {rmse:.3g} "
+        f"(mean {float(a.mean()):.4f}), counts equal")
+    w, h = GALLERY_SIZE
+    zero()
+    film, secs = render(w, h, 1 << 16, accel=accel)
+    launches = counts()
+    if not torch.isfinite(film.color).all() or int(film.count.min()) != 4:
+        raise AssertionError("[api] wavefront_pathtrace at full size: film not finite or short")
+    log(f"[api] wavefront_pathtrace {w}x{h} 4 spp, 65536 lanes: {secs:.3f} s, "
+        f"{4 / secs:.3f} spp/s, {int(film.n_traces)} traces, "
+        f"{int(film.n_traces) / secs / 1e6:.3f} Mrays/s; launches {launches}")
+    return launches
 
 
 def _net_forms(bn, st, plain_st):
@@ -1621,6 +1786,10 @@ def main() -> int:
         by_path["pool_sort"] = phase_pool_sort(dev, zero, counts)
         by_path["sharded"] = phase_sharded(dev, tmp)
         log(f"[phases 20-23] {time.monotonic() - t0:.2f} s")
+        # the public API: wavefront_pathtrace's default intersector
+        t0 = time.monotonic()
+        by_path["api"] = phase_api(dev, zero, counts)
+        log(f"[phase 24] {time.monotonic() - t0:.2f} s")
         for path, got in by_path.items():
             if min(got.values()) == 0:
                 raise AssertionError(f"[{path}] a kernel was not launched: {got}")

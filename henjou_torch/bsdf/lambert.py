@@ -12,6 +12,10 @@ from henjou_torch.math.vec import cosine_sampling
 from henjou_torch.sampling.cmj import CMJState, cmj_2d
 
 
+def lambert_eval(basecolor, wo, wi):
+    return basecolor * INV_PI
+
+
 def lambert_sample(basecolor, wo, state: CMJState):
     """Returns (bsdf[R,3], wi[R,3], pdf[R], state)."""
     xi, state = cmj_2d(state)

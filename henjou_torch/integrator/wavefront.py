@@ -126,6 +126,7 @@ def wavefront_render(
     light_ris: int = 0,
     sobol: bool = False,
     pool_sort: Callable = bitonic.bitonic_sort,
+    max_iters: Optional[int] = None,
 ) -> WavefrontFilm:
     """Render pixels [pixel_base, pixel_base + pixel_count) of a
     width x height image at `spp` samples with a `lanes`-wide refilling
@@ -139,7 +140,10 @@ def wavefront_render(
     pixel_count * spp. `pool_key_fn(o, d) -> i32 key` re-sorts the lane
     pool after every bounce with `pool_sort` (lanes a power of two, at
     least 1024 on CUDA). `sobol` lets lanes whose seed carries
-    SOBOL_SEED_FLAG draw the Sobol sequence."""
+    SOBOL_SEED_FLAG draw the Sobol sequence. `max_iters` caps the loop's
+    iterations (default: enough to drain every sample at full depth); a
+    cap that cuts the render leaves the unfinished samples out of the
+    film, as the JAX engine's does."""
     use_nee = integrator in ("nee", "mis")
     use_mis = integrator == "mis"
     mis_single = bool(mis_single) and use_mis
@@ -157,7 +161,9 @@ def wavefront_render(
     total_samples = n_pixels * spp
     # one-sample MIS paths carry one extra emission-only segment
     depth_cap = max_depth + 1 if mis_single else max_depth
-    max_iters = (total_samples // lanes + 2) * depth_cap + depth_cap
+    if max_iters is None:
+        # enough bounces to drain everything even if all paths run full depth
+        max_iters = (total_samples // lanes + 2) * depth_cap + depth_cap
     assert total_samples < (1 << 31)
     n_wraps = lanes // n_pixels + 1
     spp_offset = int(spp_offset)
@@ -440,4 +446,38 @@ def wavefront_render(
         n_traces=n_traces,
         m2=film[:, 9],
         count=film[:, 10],
+    )
+
+
+def wavefront_pathtrace(
+    frame: FrameScene,
+    sky: Sky,
+    cam: Camera,
+    width: int,
+    height: int,
+    spp: int,
+    bsdf_sample: Callable,
+    seed=0,
+    lanes: int = 1 << 16,
+    max_depth: int = MAX_DEPTH,
+    intersect_fn=None,
+    max_iters: Optional[int] = None,
+    spp_offset=0,
+    accel=None,
+) -> WavefrontFilm:
+    """Pathtrace-only wrapper over `wavefront_render` (the JAX engine's
+    original entry point, with its signature). Without `intersect_fn` it
+    traces as the renderer does: with a binned pack `accel`
+    (`pack_binned_np`), the binned intersector inside the bitonic sorted
+    wrapper; without one, by brute force, as the JAX engine does."""
+    if intersect_fn is None and accel is not None:
+        from henjou_torch.accel.pallas_binned import make_binned_intersector
+        from henjou_torch.accel.sorting import make_bitonic_sorted_intersector
+
+        intersect_fn, _ = make_bitonic_sorted_intersector(
+            *make_binned_intersector(accel), accel.scene_lo, accel.scene_hi)
+    return wavefront_render(
+        frame, sky, cam, width, height, spp, bsdf_sample,
+        integrator="pathtrace", seed=seed, lanes=lanes, max_depth=max_depth,
+        intersect_fn=intersect_fn, max_iters=max_iters, spp_offset=spp_offset,
     )

@@ -58,6 +58,11 @@ def compose_affine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return out
 
 
+def affine_to_3x4(m4: np.ndarray) -> np.ndarray:
+    """The top 3x4 rows of a 4x4 matrix, as f32."""
+    return np.asarray(m4, dtype=np.float32)[:3, :4]
+
+
 def invert_affine(m: np.ndarray) -> np.ndarray:
     """Inverse of a 3x4 affine (reference computes per-instance inverses with
     glm::inverse each frame, renderer.h:272-284)."""

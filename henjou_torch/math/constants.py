@@ -5,6 +5,7 @@ import numpy as np
 PI = float(np.pi)
 PI2 = 2.0 * PI
 INV_PI = 1.0 / PI
+HALF_PI = 0.5 * PI
 
 # Ray epsilon of the reference integrators (absolute 1e-3 tmin, 1e16
 # tmax); the integrators use the scene-relative `ray_eps` below instead.

@@ -129,9 +129,30 @@ def cosine_sampling(u, v):
     return wi, cos_t / PI
 
 
+def hemisphere_sampling(u, v):
+    """Uniform hemisphere sample (local +Y up) and its pdf 1/(2 pi).
+    Returns (wi[..., 3], pdf[...])."""
+    phi = 2.0 * PI * v
+    cos_t = u
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    wi = torch.stack([torch.cos(phi) * sin_t, cos_t, torch.sin(phi) * sin_t], dim=-1)
+    return wi, torch.full_like(u, 1.0 / (2.0 * PI))
+
+
+def polar_to_xyz(theta, phi):
+    """Y-up spherical angles to a unit vector [..., 3]."""
+    st = torch.sin(theta)
+    return torch.stack([st * torch.cos(phi), torch.cos(theta), st * torch.sin(phi)], dim=-1)
+
+
 def transform_position(mat, pos):
     """Apply a row-major [..., 3, 4] affine to points."""
     return (mat[..., :3, :3] * pos[..., None, :]).sum(dim=-1) + mat[..., :3, 3]
+
+
+def transform_direction(mat, d):
+    """Rotate and scale a direction (w = 0) by a [..., 3, 4] affine."""
+    return (mat[..., :3, :3] * d[..., None, :]).sum(dim=-1)
 
 
 def transform_normal(inv_mat, n):

@@ -42,8 +42,11 @@ Multi-GPU is one process per GPU (`runtime/sharding.py`): with
 than one process, `render_frame` shards every batch's samples over the
 group (process k takes sample indices spp_done + k*cur ..) and sums the
 films with one all-reduce per pixel group; rank 0 decides every deadline
-stop, and only rank 0 finalizes, writes PNGs and checkpoints. Adaptive
-allocation renders unsharded, as in the JAX package.
+stop, and only rank 0 finalizes, writes PNGs and checkpoints. A frame
+that is not sharded (adaptive allocation, as in the JAX package, or any
+frame when ``multichip`` is not "auto") renders once, on rank 0: the
+other processes skip it in `initialize_and_render`, and only rank 0 reads
+or writes its checkpoint.
 """
 
 from __future__ import annotations
@@ -431,7 +434,9 @@ class Renderer:
 
         With `checkpoint_path`, the sums are saved after every spp batch,
         and a checkpoint of the same frame and size found there is resumed
-        from.
+        from. In a process group only rank 0 writes it; every process of a
+        sharded frame reads it (all must start from the same spp_done),
+        and only rank 0 reads it for a frame that is not sharded.
 
         On the wavefront engine with ``adaptive``, the first batch is
         uniform and every later one gives each pixel group's budget out by
@@ -454,12 +459,15 @@ class Renderer:
         step, groups = make_step(frame_scene, accel, cam, width, height, frame)
         adaptive = engine == "wavefront" and bool(opt.adaptive)
         n_dev, rank = self._shards(adaptive)
+        # the real rank: checkpoints are rank 0's to write, and to read
+        # alone when the frame is not sharded
+        real_rank0 = sharding.world()[1] == 0
 
         # color, albedo, normal, the per-sample luminance squares and counts
         sums = [np.zeros((n, 3), np.float32) for _ in range(3)] + \
             [np.zeros((n,), np.float32) for _ in range(2)]
         spp_done = 0
-        if checkpoint_path and os.path.exists(checkpoint_path):
+        if checkpoint_path and (n_dev > 1 or real_rank0) and os.path.exists(checkpoint_path):
             with np.load(checkpoint_path) as ck:
                 # another frame or size, or a checkpoint without the second
                 # moments and counts: ignored, the frame starts over
@@ -512,7 +520,7 @@ class Renderer:
                             "batch)", frame, spp_done, opt.max_spp, px_done, n)
                 break
             spp_done += cur * n_dev
-            if checkpoint_path and rank == 0:
+            if checkpoint_path and real_rank0:
                 # a temp file, then an atomic rename: a kill mid-write
                 # leaves the previous checkpoint whole
                 np.savez(checkpoint_path + ".tmp.npz", frame=frame, spp_done=spp_done,
@@ -553,7 +561,9 @@ class Renderer:
         """(process count, this process's rank) the frame's samples are
         sharded over: the `torch.distributed` group with
         ``multichip="auto"``, unless adaptive allocation renders
-        unsharded; else (1, 0)."""
+        unsharded; else (1, 0). A frame left unsharded inside a group is
+        rank 0's alone: `initialize_and_render` skips it on every other
+        process."""
         size, rank = sharding.world()
         if size <= 1 or self.option.multichip != "auto":
             return 1, 0
@@ -716,8 +726,9 @@ class Renderer:
         every spp batch), finalize in the configured mode and write one PNG
         per frame (four per frame in Debug mode). Returns the written
         paths. In a `torch.distributed` group only rank 0 finalizes and
-        writes; the other processes render their shares and return no
-        paths."""
+        writes; the other processes render their shares of sharded frames,
+        skip the frames that are not sharded (see `_shards`; their
+        frame_stats entry has spp 0) and return no paths."""
         overall_t0 = time.monotonic()
         if self.device.type == "cuda" and os.environ.get("HENJOU_SKIP_CANARY", "0") != "1":
             # known-answer render through the kernels before the budget is
@@ -734,6 +745,8 @@ class Renderer:
             self.build()
         opt = self.option
         writer = sharding.world()[1] == 0
+        # inside a group, a frame that is not sharded is rank 0's alone
+        sharded = self._shards(self._resolve_engine() == "wavefront" and bool(opt.adaptive))[0] > 1
         budget_s = opt.time_limit * 60.0
         stamp = time.strftime("%Y%m%d-%H%M%S") + "_" if opt.use_date else ""
 
@@ -757,6 +770,9 @@ class Renderer:
                                         f"{stamp}{opt.image_name}_{key}_{frame:03d}.png")
                     write_png(path, u8)
                     written.append(path)
+                continue
+            if not writer and not sharded:
+                self.frame_stats.append(dict(frame=frame, spp=0, render_s=0.0))
                 continue
             remaining = budget_s - (t0 - overall_t0)
             frames_left = max(opt.end_frame - frame, 1)

@@ -175,3 +175,17 @@ def cmj_1d(state: CMJState):
     """A 2D draw's x component."""
     xi, state = cmj_2d(state)
     return xi[..., 0], state
+
+
+def cmj_3d(state: CMJState):
+    """A 2D draw, then a 1D draw; returns ([..., 3], new_state)."""
+    xi2, state = cmj_2d(state)
+    x1, state = cmj_1d(state)
+    return torch.cat([xi2, x1[..., None]], dim=-1), state
+
+
+def cmj_4d(state: CMJState):
+    """Two 2D draws; returns ([..., 4], new_state)."""
+    a, state = cmj_2d(state)
+    b, state = cmj_2d(state)
+    return torch.cat([a, b], dim=-1), state

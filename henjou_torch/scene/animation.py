@@ -12,6 +12,7 @@ reference too, animation.h:68-79), T*R*S composition (animation.h:81-94).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List
 
 import numpy as np
@@ -86,6 +87,25 @@ class Animation:
         """Rotation-only (camera direction path, animation.h:96-103)."""
         r = _interpolate(self.rotation, time, (0.0, 0.0, 0.0, 1.0))
         return rotate_affine(r)
+
+    def get_translation_affine(self, time: float) -> np.ndarray:
+        t = _interpolate(self.translation, time, (0.0, 0.0, 0.0))
+        return translate_affine(t)
+
+    def data_check(self) -> bool:
+        """Consistency assert (animation.h:112-130): False, with an error
+        logged, when a track's keys and values differ in length."""
+        for name, tr in (
+            ("translation", self.translation),
+            ("rotation", self.rotation),
+            ("scale", self.scale),
+        ):
+            if len(tr.keys) != len(tr.values):
+                logging.getLogger("henjou_torch").error(
+                    "%s: %s keys/values mismatch", self.name, name
+                )
+                return False
+        return True
 
 
 def static_animation(translation=(0, 0, 0), rotation=(0, 0, 0, 1), scale=(1, 1, 1)):

@@ -60,6 +60,16 @@ def build_atlas_np(textures: List):
     return data, offset, size
 
 
+def build_atlas(textures: List, device) -> TextureAtlas:
+    """`build_atlas_np`'s shelf pack as a TextureAtlas of tensors on
+    `device`; a 1x1 white atlas when there are no textures."""
+    data, offset, size = build_atlas_np(textures)
+    dev = torch.device(device)
+    return TextureAtlas(data=torch.from_numpy(data).to(dev),
+                        offset=torch.from_numpy(offset).to(dev),
+                        size=torch.from_numpy(size).to(dev))
+
+
 def sample_atlas_rect(data: torch.Tensor, rect: torch.Tensor, u, v) -> torch.Tensor:
     """Bilinear wrap sample with the atlas rect (oy, ox, h, w) carried per
     lane in `rect` [R,4]; h == 0 means "no texture" (returns white).
@@ -92,3 +102,13 @@ def sample_atlas_rect(data: torch.Tensor, rect: torch.Tensor, u, v) -> torch.Ten
     bot = t01 * (1.0 - fx) + t11 * fx
     out = top * (1.0 - fy) + bot * fy
     return torch.where((rect[:, 2] > 0.0)[:, None], out, torch.ones_like(out))
+
+
+def sample_atlas(atlas: TextureAtlas, tex_id: torch.Tensor, u, v) -> torch.Tensor:
+    """Bilinear wrap sample of texture `tex_id` [R] (-1 -> white) at u, v
+    [R]: each lane's (oy, ox, h, w) gathered from the atlas, then
+    `sample_atlas_rect`. Returns [R,4]."""
+    tid = torch.clamp(tex_id.to(torch.int64), min=0)
+    rect = torch.cat([atlas.offset[tid], atlas.size[tid]], dim=1).to(torch.float32)
+    out = sample_atlas_rect(atlas.data, rect, u, v)
+    return torch.where((tex_id >= 0)[:, None], out, torch.ones_like(out))

@@ -1,0 +1,1 @@
+from henjou_torch.utils.timer import Timer, phase_log

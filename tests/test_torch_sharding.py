@@ -14,7 +14,12 @@ Two processes (`torch.multiprocessing.spawn`) join a gloo group through a
    one spp per process), `wavefront_sharded_step` and `tile_sharded_step`;
 4. a deadline that only rank 0's estimate says is spent: both processes
    stop after the same batch (rank 0 decides; otherwise the all-reduce
-   of the next batch would hang).
+   of the next batch would hang);
+5. `initialize_and_render` of frames that are not sharded, with the
+   checkpoint path that both processes share: the gallery with
+   ``adaptive=True`` (4 spp, ``spp_batch=1``), and with
+   ``multichip="off"``. Rank 0 renders each alone and is the only process
+   that writes its checkpoint; rank 1 renders 0 spp.
 
 The same renders then run in this process without a group. Trace counts
 are exact integers and sum exactly.
@@ -105,6 +110,42 @@ def _frame_arrays(prefix, out):
         f"{prefix}_traces": out["n_traces"], f"{prefix}_spp": out["spp_done"]}
 
 
+UNSHARDED = {"adaptive": dict(adaptive=True), "off": dict(multichip="off")}
+
+
+def _unsharded_frames(rank, out_dir):
+    """`initialize_and_render` of each UNSHARDED option in the current
+    group: the film rank 0 rendered, this process's frame_stats spp, and
+    the checkpoint writes it made (np.savez calls on the checkpoint
+    path)."""
+    res = {}
+    for name, over in UNSHARDED.items():
+        r = _gallery("wavefront", 4, image_directory=out_dir, image_name=f"unsharded_{name}",
+                     **over)
+        films, saves = [], []
+        render_frame, savez = r.render_frame, np.savez
+
+        def recorded_render(*a, **kw):
+            films.append(render_frame(*a, **kw))
+            return films[-1]
+
+        def recorded_savez(path, *a, **kw):
+            if ".ckpt.npz" in str(path):
+                saves.append(str(path))
+            return savez(path, *a, **kw)
+
+        r.render_frame, np.savez = recorded_render, recorded_savez
+        try:
+            r.initialize_and_render()
+        finally:
+            np.savez = savez
+        res[f"{name}_spp"] = r.frame_stats[0]["spp"]
+        res[f"{name}_saves"] = len(saves)
+        if films:
+            res |= _frame_arrays(name, films[0])
+    return res
+
+
 def _worker(rank, store, out_dir):
     import torch.distributed as dist
 
@@ -125,6 +166,7 @@ def _worker(rank, store, out_dir):
         r = _gallery("wavefront", 8)
         r._est_px_spp["wavefront"] = 1e6 if rank == 0 else 1e-12
         res["deadline_spp"] = r.render_frame(0, deadline=1000.0)["spp_done"]
+        res |= _unsharded_frames(rank, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
@@ -214,3 +256,22 @@ def test_rank0_decides_the_deadline(sharded):
     own estimate would go on, but it follows rank 0 (4 spp would hang)."""
     _, ranks = sharded
     assert [int(r["deadline_spp"]) for r in ranks] == [WORLD, WORLD]
+
+
+@pytest.mark.parametrize("name", sorted(UNSHARDED))
+def test_unsharded_frame_renders_once_on_rank0(sharded, name):
+    """A frame that is not sharded (adaptive allocation, or multichip
+    "off") inside a group: rank 0 renders it alone and writes its
+    checkpoint once per spp batch, rank 1 renders 0 spp and writes none,
+    no checkpoint is left, and rank 0's film equals one process's."""
+    out_dir, (r0, r1) = sharded
+    assert int(r1[f"{name}_spp"]) == 0 and f"{name}_color" not in r1
+    assert int(r1[f"{name}_saves"]) == 0
+    assert int(r0[f"{name}_saves"]) == 4  # spp_batch 1, 4 spp
+    assert not list(out_dir.glob(f".unsharded_{name}_*"))
+    assert sorted(p.name for p in out_dir.glob(f"unsharded_{name}*")) == [
+        f"unsharded_{name}_000.png"]
+    want = _gallery("wavefront", 4, **UNSHARDED[name]).render_frame(0)
+    _check_frame(r0, want, name)
+    assert np.array_equal(r0[f"{name}_count"], want["count"])
+    assert int(r0[f"{name}_spp"]) == 4
