@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from henjou_torch.accel import bitonic
+from henjou_torch.utils.timer import span
 
 DEAD_KEY = (1 << 30) - 1
 
@@ -97,38 +98,43 @@ def make_bitonic_sorted_intersector(intersect_fn, occluded_fn, lo, hi,
 
     def _sorted(fn, closest: bool):
         def wrapped(tri, ray_o, ray_d, tmin, tmax):
-            r = ray_o.shape[0]
-            dev = ray_o.device
-            tmin_b = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r)
-            tmax_b = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
-            # a 0-d tmin is the same for every lane: no sort plane for it
-            scalar_tmin = torch.as_tensor(tmin).dim() == 0
-            key = ray_sort_key(ray_o, ray_d, lo, inv_extent)
-            key = torch.where(tmax_b > tmin_b, key, DEAD_KEY)
-            n = _padded_size(r)
-            planes = [ray_o, ray_d]
-            if not scalar_tmin:
-                planes.append(tmin_b)
-            planes.append(tmax_b)
-            if n != r:
-                # dead padding lanes: zero origin, +y direction, tmax = 0
-                pad = n - r
-                key = torch.cat([key, torch.full((pad,), DEAD_KEY, dtype=torch.int32, device=dev)])
-                fill = [torch.zeros(pad, 3, device=dev),
-                        torch.tensor([0.0, 1.0, 0.0], device=dev).expand(pad, 3)]
-                fill += [torch.zeros(pad, device=dev)] * (len(planes) - 2)
-                planes = [torch.cat([p, f.to(p.dtype)]) for p, f in zip(planes, fill)]
-            lane = torch.arange(n, dtype=torch.int32, device=dev)
-            _, so, sd, *st, lid = sort(key.contiguous(), *[p.contiguous() for p in planes], lane)
-            tn = tmin_b[:1].expand(n) if scalar_tmin else st[0]
-            out = fn(tri, so, sd, tn, st[-1])
-            if not closest:
-                (res,) = unsort(lid, out.to(torch.int32))
-                return res[:r] != 0
-            t, prim, u, v, _ = out
-            t, prim, u, v = unsort(lid, t, prim, u, v)
-            t, prim, u, v = t[:r], prim[:r], u[:r], v[:r]
-            return t, prim, u, v, prim >= 0
+            with span("accel.sort"):
+                r = ray_o.shape[0]
+                dev = ray_o.device
+                tmin_b = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r)
+                tmax_b = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
+                # a 0-d tmin is the same for every lane: no sort plane for it
+                scalar_tmin = torch.as_tensor(tmin).dim() == 0
+                key = ray_sort_key(ray_o, ray_d, lo, inv_extent)
+                key = torch.where(tmax_b > tmin_b, key, DEAD_KEY)
+                n = _padded_size(r)
+                planes = [ray_o, ray_d]
+                if not scalar_tmin:
+                    planes.append(tmin_b)
+                planes.append(tmax_b)
+                if n != r:
+                    # dead padding lanes: zero origin, +y direction, tmax = 0
+                    pad = n - r
+                    key = torch.cat([key, torch.full((pad,), DEAD_KEY, dtype=torch.int32,
+                                                     device=dev)])
+                    fill = [torch.zeros(pad, 3, device=dev),
+                            torch.tensor([0.0, 1.0, 0.0], device=dev).expand(pad, 3)]
+                    fill += [torch.zeros(pad, device=dev)] * (len(planes) - 2)
+                    planes = [torch.cat([p, f.to(p.dtype)]) for p, f in zip(planes, fill)]
+                lane = torch.arange(n, dtype=torch.int32, device=dev)
+                _, so, sd, *st, lid = sort(key.contiguous(), *[p.contiguous() for p in planes],
+                                           lane)
+                tn = tmin_b[:1].expand(n) if scalar_tmin else st[0]
+            with span("accel.intersect"):
+                out = fn(tri, so, sd, tn, st[-1])
+            with span("accel.unsort"):
+                if not closest:
+                    (res,) = unsort(lid, out.to(torch.int32))
+                    return res[:r] != 0
+                t, prim, u, v, _ = out
+                t, prim, u, v = unsort(lid, t, prim, u, v)
+                t, prim, u, v = t[:r], prim[:r], u[:r], v[:r]
+                return t, prim, u, v, prim >= 0
 
         return wrapped
 

@@ -33,6 +33,7 @@ from henjou_torch.math.vec import absdot, dot, length, local_to_world, orthonorm
 from henjou_torch.sampling.cmj import CMJState, cmj_2d
 from henjou_torch.sampling.light_sample import light_table, sample_light
 from henjou_torch.scene.scenedata import FrameScene
+from henjou_torch.utils.timer import span
 
 
 def light_branch(frame, hit, c, frame_basis, lights, eps_r, occluded_fn):
@@ -41,18 +42,20 @@ def light_branch(frame, hit, c, frame_basis, lights, eps_r, occluded_fn):
     shadow rays cast, ok, g, cos1, l_pdf, l_emission, local_wi_l): `ok`
     marks the lanes whose sample counts, g = cos2 / dist^2."""
     t, n, b = frame_basis
-    l_pos, l_normal, l_emission, l_pdf, l_valid, st = sample_light(frame, c.st, lights)
-    to_light = l_pos - hit.position
-    l_dist = torch.clamp(length(to_light), min=1e-12)
-    l_dir = to_light / l_dist[:, None]
-    cast = c.alive & ~hit.is_specular
+    with span("engine.shade"):
+        l_pos, l_normal, l_emission, l_pdf, l_valid, st = sample_light(frame, c.st, lights)
+        to_light = l_pos - hit.position
+        l_dist = torch.clamp(length(to_light), min=1e-12)
+        l_dir = to_light / l_dist[:, None]
+        cast = c.alive & ~hit.is_specular
     blocked = occluded(frame, hit.position, l_dir, eps_r,
                        torch.where(cast, l_dist * (1.0 - SHADOW_EPS_REL), 0.0), occluded_fn)
-    cos1 = absdot(n, l_dir)
-    cos2 = absdot(l_normal, -l_dir)
-    local_wi_l = world_to_local(l_dir, t, n, b)
-    g = cos2 / (l_dist * l_dist)
-    ok = c.alive & l_valid & ~blocked & (l_pdf > 0.0)
+    with span("engine.shade"):
+        cos1 = absdot(n, l_dir)
+        cos2 = absdot(l_normal, -l_dir)
+        local_wi_l = world_to_local(l_dir, t, n, b)
+        g = cos2 / (l_dist * l_dist)
+        ok = c.alive & l_valid & ~blocked & (l_pdf > 0.0)
     return st, cast.sum(), ok, g, cos1, l_pdf, l_emission, local_wi_l
 
 
@@ -93,20 +96,24 @@ def nee(
     lights = light_table(frame)
     c = init_loop(ray_o, ray_d, state)
     for depth in range(max_depth):
-        hit, c = roulette_and_trace(frame, sky, c, eps_r, depth, intersect_fn)
-        c = emit_first(c, hit, depth)
-        n = hit.normal
-        t, b = orthonormal_basis(n)
-        local_wo = world_to_local(-c.d, t, n, b)
+        with span("engine.bounce"):
+            hit, c = roulette_and_trace(frame, sky, c, eps_r, depth, intersect_fn)
+            with span("engine.shade"):
+                c = emit_first(c, hit, depth)
+                n = hit.normal
+                t, b = orthonormal_basis(n)
+                local_wo = world_to_local(-c.d, t, n, b)
 
-        # ---- NEE (rt.h:218-260) ----
-        st, n_shadow, ok, g, cos1, l_pdf, l_emission, local_wi_l = light_branch(
-            frame, hit, c, (t, n, b), lights, eps_r, occluded_fn)
-        f_l = bsdf_eval(hit, local_wo, local_wi_l)
-        contrib = c.thr * f_l * (g * cos1 / torch.clamp(l_pdf, min=1e-12))[:, None] * l_emission
-        c = c._replace(st=st, n_tr=c.n_tr + n_shadow,
-                       lte=c.lte + torch.where(ok[:, None], contrib, 0.0))
+            # ---- NEE (rt.h:218-260) ----
+            st, n_shadow, ok, g, cos1, l_pdf, l_emission, local_wi_l = light_branch(
+                frame, hit, c, (t, n, b), lights, eps_r, occluded_fn)
+            with span("engine.shade"):
+                f_l = bsdf_eval(hit, local_wo, local_wi_l)
+                contrib = (c.thr * f_l * (g * cos1 / torch.clamp(l_pdf, min=1e-12))[:, None]
+                           * l_emission)
+                c = c._replace(st=st, n_tr=c.n_tr + n_shadow,
+                               lte=c.lte + torch.where(ok[:, None], contrib, 0.0))
 
-        # ---- BSDF bounce ----
-        c = bsdf_continuation(hit, c, local_wo, (t, n, b), bsdf_sample)
+                # ---- BSDF bounce ----
+                c = bsdf_continuation(hit, c, local_wo, (t, n, b), bsdf_sample)
     return PathtraceResult(lte=c.lte, aov_albedo=c.aov_a, aov_normal=c.aov_n, n_traces=c.n_tr)

@@ -25,6 +25,7 @@ from henjou_torch.math.constants import TMAX_RAY, ray_eps
 from henjou_torch.math.vec import dot, local_to_world, orthonormal_basis, world_to_local
 from henjou_torch.sampling.cmj import CMJState, cmj_1d
 from henjou_torch.scene.scenedata import FrameScene
+from henjou_torch.utils.timer import span
 
 MAX_DEPTH = 10  # reference: rt.h:89
 
@@ -105,18 +106,21 @@ def pathtrace(
     eps_r = ray_eps(frame)  # scene-relative tmin
     c = init_loop(ray_o, ray_d, state)
     for depth in range(max_depth):
-        hit, c = roulette_and_trace(frame, sky, c, eps_r, depth, intersect_fn)
-        # a miss (sky) or a light hit adds its emission and ends the path
-        # (rt.h:118-126)
-        terminal = (~hit.is_hit) | hit.is_light
-        lte = c.lte + torch.where((c.alive & terminal)[:, None], c.thr * hit.emission, 0.0)
-        c = c._replace(lte=lte, alive=c.alive & ~terminal)
+        with span("engine.bounce"):
+            hit, c = roulette_and_trace(frame, sky, c, eps_r, depth, intersect_fn)
+            with span("engine.shade"):
+                # a miss (sky) or a light hit adds its emission and ends the
+                # path (rt.h:118-126)
+                terminal = (~hit.is_hit) | hit.is_light
+                lte = c.lte + torch.where((c.alive & terminal)[:, None], c.thr * hit.emission,
+                                          0.0)
+                c = c._replace(lte=lte, alive=c.alive & ~terminal)
 
-        n = hit.normal
-        t, b = orthonormal_basis(n)
-        local_wo = world_to_local(-c.d, t, n, b)
-        bsdf, local_wi, pdf, st = bsdf_sample(hit, local_wo, c.st)
-        wi = local_to_world(local_wi, t, n, b)
-        weight = bsdf * (torch.abs(dot(wi, n)) / torch.clamp(pdf, min=1e-12))[:, None]
-        c = continue_path(c._replace(st=st), hit, weight, wi)
+                n = hit.normal
+                t, b = orthonormal_basis(n)
+                local_wo = world_to_local(-c.d, t, n, b)
+                bsdf, local_wi, pdf, st = bsdf_sample(hit, local_wo, c.st)
+                wi = local_to_world(local_wi, t, n, b)
+                weight = bsdf * (torch.abs(dot(wi, n)) / torch.clamp(pdf, min=1e-12))[:, None]
+                c = continue_path(c._replace(st=st), hit, weight, wi)
     return PathtraceResult(lte=c.lte, aov_albedo=c.aov_a, aov_normal=c.aov_n, n_traces=c.n_tr)

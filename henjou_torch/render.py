@@ -35,7 +35,8 @@ def _parse(argv):
                     "checks as JSON to PATH")
     ap.add_argument("--profile", type=str, metavar="DIR",
                     help="capture a torch.profiler trace of the render into "
-                    "DIR (trace.json.gz for Perfetto, ops.txt, summary.json)")
+                    "DIR (trace.json.gz for Perfetto, ops.txt, spans.json, "
+                    "summary.json with the device's idle time by span)")
     return ap.parse_args(argv)
 
 
@@ -145,55 +146,94 @@ def _run(args) -> int:
     return 0
 
 
-def profiled(fn, device, top=10):
-    """Call `fn()` under torch.profiler; returns (its result, the profiler,
-    a summary): the device's busy time (summed kernel time) against the
-    call's wall time, the kernel launch count, and the `top` kernels that
-    took the most device time."""
-    import time
+def _profiled(r, out_dir: str) -> list:
+    """Render under torch.profiler and write into `out_dir` the chrome
+    trace, the op table, spans.json (every frame's spans and counters,
+    `utils/timer.py`) and summary.json: the frame stats without their
+    spans and, on CUDA, the device's idle seconds between its first and
+    last operation by the innermost span open over them."""
+    import os
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    on_cuda = device.type == "cuda"
+    on_cuda = r.device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
     with profile(activities=acts) as prof:
-        t0 = time.monotonic()
-        result = fn()
+        written = r.initialize_and_render()
         if on_cuda:
-            torch.cuda.synchronize(device)
-        wall_s = time.monotonic() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    summary = dict(
-        device=torch.cuda.get_device_name(device) if on_cuda else "cpu",
-        wall_s=wall_s, device_busy_s=busy_us / 1e6,
-        device_idle_share=1.0 - busy_us / 1e6 / max(wall_s, 1e-9) if on_cuda else None,
-        n_kernel_launches=len(kernels),
-        top_kernels_s={k: v / 1e6 for k, v in ranked},
-    )
-    return result, prof, summary
-
-
-def _profiled(r, out_dir: str) -> list:
-    """Render under torch.profiler and write the chrome trace, the op table
-    and the summary of `profiled` with the frame stats."""
-    import os
-
-    written, prof, summary = profiled(r.initialize_and_render, r.device)
+            torch.cuda.synchronize(r.device)
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json.gz"))
-    key = "device_time_total" if r.device.type == "cuda" else "cpu_time_total"
+    key = "device_time_total" if on_cuda else "cpu_time_total"
     with open(os.path.join(out_dir, "ops.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by=key, row_limit=60))
-    summary["frames"] = r.frame_stats
+    traced = [dict(frame=s["frame"], spans=s.get("spans", []), counters=s.get("counters", {}))
+              for s in r.frame_stats]
+    with open(os.path.join(out_dir, "spans.json"), "w") as f:
+        json.dump(traced, f)
+    summary = dict(device=torch.cuda.get_device_name(r.device) if on_cuda else "cpu",
+                   idle_s_by_span=None,
+                   frames=[{k: v for k, v in s.items() if k not in ("spans", "counters")}
+                           for s in r.frame_stats])
+    if on_cuda:
+        busy = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in prof.profiler.kineto_results.events()
+                if str(e.device_type()).endswith("CUDA")]
+        summary["idle_s_by_span"] = _idle_by_span([s for t in traced for s in t["spans"]], busy)
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return written
+
+
+def _innermost(spans) -> list:
+    """[(start, end, name)] over the union of `spans` ([name, parent,
+    start, end], nested as they were opened), each piece named by the
+    innermost span open over it: a span's self time is the length of its
+    pieces."""
+    out, stack, cur = [], [], None
+    for name, _, start, end in sorted(spans, key=lambda s: (s[2], -s[3])):
+        while stack and stack[-1][1] <= start:
+            top, top_end = stack.pop()
+            if top_end > cur:
+                out.append((cur, top_end, top))
+                cur = top_end
+        if stack and start > cur:
+            out.append((cur, start, stack[-1][0]))
+        cur = start
+        stack.append((name, end))
+    while stack:
+        top, top_end = stack.pop()
+        if top_end > cur:
+            out.append((cur, top_end, top))
+            cur = top_end
+    return out
+
+
+def _idle_by_span(spans, busy) -> dict:
+    """Seconds of the gaps between the union of the device's `busy`
+    (start, end) intervals, by the innermost span open over each part of a
+    gap ("(no span)" where none is), largest first."""
+    gaps, end = [], None
+    for s, e in sorted(busy):
+        if end is not None and s > end:
+            gaps.append((end, s))
+        end = e if end is None else max(end, e)
+    by: dict = {}
+    pieces = _innermost(spans)
+    j = 0
+    for g0, g1 in gaps:
+        covered = 0
+        while j < len(pieces) and pieces[j][1] <= g0:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < g1:
+            lap = min(g1, pieces[k][1]) - max(g0, pieces[k][0])
+            by[pieces[k][2]] = by.get(pieces[k][2], 0) + lap
+            covered += lap
+            k += 1
+        by["(no span)"] = by.get("(no span)", 0) + (g1 - g0 - covered)
+    return {k: v * 1e-9 for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,12 @@ BINNED_LIGHT_THRESHOLD emissive triangles and goes through the binned
 intersector over the emissive subset above it
 (`make_binned_light_intersector`, cached with the main accel).
 
+Under a profiler, spans (`utils/timer.py`) mark the frame loop's parts
+(`frame.scene`, `frame.render`, `engine.step`, `frame.film_readback`,
+`frame.checkpoint`, `frame.finalize` with its probe and filters,
+`frame.output`); `initialize_and_render` moves each frame's spans and
+counters into its `frame_stats` entry (keys `spans`, `counters`).
+
 The denoiser runs on the renderer's device: the engine's numpy AOVs go up
 once per frame and the temporal history stays there between frames. A
 failing probe or canary raises; nothing falls back.
@@ -74,6 +80,8 @@ from henjou_torch.scene.scenedata import (
     build_frame_scene,
     identity_transforms,
 )
+from henjou_torch.utils import timer
+from henjou_torch.utils.timer import span
 
 log = logging.getLogger("henjou_torch")
 
@@ -450,9 +458,10 @@ class Renderer:
             width, height = width // 2, height // 2
         n = width * height
         t0 = time.monotonic()
-        frame_scene, accel, cam = self.frame_scene(frame)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("frame.scene"):
+            frame_scene, accel, cam = self.frame_scene(frame)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         build_s = time.monotonic() - t0
         engine = self._resolve_engine()
         make_step = self._make_wavefront_step if engine == "wavefront" else self._make_masked_step
@@ -480,56 +489,62 @@ class Renderer:
         traces = 0
         batch = max(1, opt.spp_batch)
         est = self._est_px_spp.get(engine)
-        t0 = time.monotonic()
-        stop = False
-        while spp_done < opt.max_spp:
-            # spp per process: a batch advances the frame by cur * n_dev
-            cur = min(batch, max(1, -(-(opt.max_spp - spp_done) // n_dev)))
-            if engine == "masked" and deadline is not None and spp_done == 0 and est is not None:
-                left = deadline - (time.monotonic() - t0)
-                cur = self._rank0(max(1, min(cur, int(left / max(est * n, 1e-12)))), n_dev)
-            t_batch = time.monotonic()
-            px_done = 0
-            for index, arg, npix in groups:
-                if deadline is not None and spp_done > 0 and est is not None:
-                    stop = bool(self._rank0(
-                        int(time.monotonic() - t0 + est * npix * cur > deadline), n_dev))
-                    if stop:
-                        break
-                kw = {}
-                if adaptive:
-                    color, _, _, m2, cnt = (x[index] for x in sums)
-                    counts = (_adaptive_allocation(npix * cur, color, m2, cnt,
-                                                   metric=opt.adaptive_metric)
-                              if spp_done > 0 else np.full((npix,), cur, np.int32))
-                    kw = dict(counts=torch.from_numpy(counts),
-                              cbase=torch.from_numpy(cnt.astype(np.int32)))
-                out = step(arg, spp_done + rank * cur, cur, **kw)
-                if n_dev > 1:
-                    out = sharding.all_reduce_film(out)
-                for acc, x in zip(sums, out[:5]):
-                    acc[index] += x.cpu().numpy()
-                traces += int(out[5])
-                px_done += npix
-            if px_done:
-                per = (time.monotonic() - t_batch) / (px_done * cur)
-                est = per if est is None else 0.5 * est + 0.5 * per
-                self._est_px_spp[engine] = est
-            if stop:
-                log.warning("frame %d: deadline hit at %d/%d spp (+%d/%d pixels of the next "
-                            "batch)", frame, spp_done, opt.max_spp, px_done, n)
-                break
-            spp_done += cur * n_dev
-            if checkpoint_path and real_rank0:
-                # a temp file, then an atomic rename: a kill mid-write
-                # leaves the previous checkpoint whole
-                np.savez(checkpoint_path + ".tmp.npz", frame=frame, spp_done=spp_done,
-                         **dict(zip(self._CKPT_SUMS, sums)))
-                os.replace(checkpoint_path + ".tmp.npz", checkpoint_path)
-            if deadline is not None and self._rank0(
-                    int(time.monotonic() - t0 > deadline), n_dev):
-                log.warning("frame %d: deadline hit at %d/%d spp", frame, spp_done, opt.max_spp)
-                break
+        with span("frame.render"):
+            t0 = time.monotonic()
+            stop = False
+            while spp_done < opt.max_spp:
+                # spp per process: a batch advances the frame by cur * n_dev
+                cur = min(batch, max(1, -(-(opt.max_spp - spp_done) // n_dev)))
+                if (engine == "masked" and deadline is not None and spp_done == 0
+                        and est is not None):
+                    left = deadline - (time.monotonic() - t0)
+                    cur = self._rank0(max(1, min(cur, int(left / max(est * n, 1e-12)))), n_dev)
+                t_batch = time.monotonic()
+                px_done = 0
+                for index, arg, npix in groups:
+                    if deadline is not None and spp_done > 0 and est is not None:
+                        stop = bool(self._rank0(
+                            int(time.monotonic() - t0 + est * npix * cur > deadline), n_dev))
+                        if stop:
+                            break
+                    kw = {}
+                    if adaptive:
+                        color, _, _, m2, cnt = (x[index] for x in sums)
+                        counts = (_adaptive_allocation(npix * cur, color, m2, cnt,
+                                                       metric=opt.adaptive_metric)
+                                  if spp_done > 0 else np.full((npix,), cur, np.int32))
+                        kw = dict(counts=torch.from_numpy(counts),
+                                  cbase=torch.from_numpy(cnt.astype(np.int32)))
+                    with span("engine.step"):
+                        out = step(arg, spp_done + rank * cur, cur, **kw)
+                    if n_dev > 1:
+                        out = sharding.all_reduce_film(out)
+                    with span("frame.film_readback"):
+                        for acc, x in zip(sums, out[:5]):
+                            acc[index] += x.cpu().numpy()
+                        traces += int(out[5])
+                    px_done += npix
+                if px_done:
+                    per = (time.monotonic() - t_batch) / (px_done * cur)
+                    est = per if est is None else 0.5 * est + 0.5 * per
+                    self._est_px_spp[engine] = est
+                if stop:
+                    log.warning("frame %d: deadline hit at %d/%d spp (+%d/%d pixels of the next "
+                                "batch)", frame, spp_done, opt.max_spp, px_done, n)
+                    break
+                spp_done += cur * n_dev
+                if checkpoint_path and real_rank0:
+                    # a temp file, then an atomic rename: a kill mid-write
+                    # leaves the previous checkpoint whole
+                    with span("frame.checkpoint"):
+                        np.savez(checkpoint_path + ".tmp.npz", frame=frame, spp_done=spp_done,
+                                 **dict(zip(self._CKPT_SUMS, sums)))
+                        os.replace(checkpoint_path + ".tmp.npz", checkpoint_path)
+                if deadline is not None and self._rank0(
+                        int(time.monotonic() - t0 > deadline), n_dev):
+                    log.warning("frame %d: deadline hit at %d/%d spp", frame, spp_done,
+                                opt.max_spp)
+                    break
         render_s = time.monotonic() - t0
         log.info("frame %d %s[%s%s%s]: %.2fs (%d spp, %.1f Mtraces, %.1f Mrays/s)", frame,
                  engine, self.integrator if engine == "masked" or self.integrator != "mis"
@@ -673,13 +688,16 @@ class Renderer:
             m2 = torch.zeros_like(c[:, 0])
             traces = torch.zeros((), dtype=torch.int64, device=self.device)
             for i in range(spp_count):
-                state = make_cmj_state(spp_start + i, pixel_idx, seed, sobol=self._sobol())
-                o, d, state = camera_rays(cam, width, height, pixel_idx, state)
+                with span("engine.spawn"):
+                    state = make_cmj_state(spp_start + i, pixel_idx, seed, sobol=self._sobol())
+                    o, d, state = camera_rays(cam, width, height, pixel_idx, state)
                 res = self._integrate(frame_scene, o, d, state, *fns)
-                lum = res.lte[:, 0] * 0.2126 + res.lte[:, 1] * 0.7152 + res.lte[:, 2] * 0.0722
-                c, a, nm = c + res.lte, a + res.aov_albedo, nm + res.aov_normal
-                m2 = m2 + lum * lum
-                traces = traces + res.n_traces
+                with span("engine.film"):
+                    lum = (res.lte[:, 0] * 0.2126 + res.lte[:, 1] * 0.7152
+                           + res.lte[:, 2] * 0.0722)
+                    c, a, nm = c + res.lte, a + res.aov_albedo, nm + res.aov_normal
+                    m2 = m2 + lum * lum
+                    traces = traces + res.n_traces
             return c, a, nm, m2, torch.full_like(m2, float(spp_count)), traces
 
         order = _swizzled_pixel_order(width, height)
@@ -774,6 +792,7 @@ class Renderer:
             if not writer and not sharded:
                 self.frame_stats.append(dict(frame=frame, spp=0, render_s=0.0))
                 continue
+            timer.take()  # what was recorded before this frame is not its own
             remaining = budget_s - (t0 - overall_t0)
             frames_left = max(opt.end_frame - frame, 1)
             out_dir = os.path.join(opt.image_directory, os.path.dirname(opt.image_name))
@@ -785,22 +804,23 @@ class Renderer:
                 deadline *= 0.6
             aovs = self.render_frame(frame, deadline=deadline, checkpoint_path=ckpt)
             if not writer:
-                self.frame_stats.append(dict(frame=frame, spp=aovs["spp_done"],
-                                             render_s=aovs["render_s"]))
+                self.frame_stats.append(_with_spans(dict(frame=frame, spp=aovs["spp_done"],
+                                                         render_s=aovs["render_s"])))
                 continue
-            if os.path.exists(ckpt):
-                os.remove(ckpt)  # frame complete
             t_fin = time.monotonic()
             img = self._finalize(aovs, frame=frame)
             finalize_s = time.monotonic() - t_fin
-            u8 = float_to_srgb_u8(torch.as_tensor(img)).numpy()
-            name = f"{stamp}{opt.image_name}_{frame:03d}.png"
-            path = os.path.join(opt.image_directory, name)
-            write_png(path, u8)
+            with span("frame.output"):
+                if os.path.exists(ckpt):
+                    os.remove(ckpt)  # frame complete
+                u8 = float_to_srgb_u8(torch.as_tensor(img)).numpy()
+                name = f"{stamp}{opt.image_name}_{frame:03d}.png"
+                path = os.path.join(opt.image_directory, name)
+                write_png(path, u8)
             written.append(path)
             frame_total = time.monotonic() - t0
             overhead_est = frame_total - float(aovs["render_s"])
-            self.frame_stats.append(dict(
+            self.frame_stats.append(_with_spans(dict(
                 frame=frame, spp=aovs["spp_done"], render_s=aovs["render_s"],
                 build_s=aovs["build_s"], n_traces=aovs["n_traces"],
                 finalize_s=finalize_s, finalize_png_s=time.monotonic() - t_fin,
@@ -808,7 +828,7 @@ class Renderer:
                 film_finite=bool(np.isfinite(aovs["color"]).all()),
                 film_mean=float(aovs["color"].mean()),
                 image_finite=bool(np.isfinite(img).all()),
-            ))
+            )))
             log.info(
                 "frame %d: %d spp in %.2fs (render %.2fs, finalize %.2fs, overhead %.2fs) -> %s",
                 frame, aovs["spp_done"], frame_total, aovs["render_s"], finalize_s,
@@ -826,27 +846,31 @@ class Renderer:
         first-hit probe. DenoiseTemporal: temporal accumulation or
         reprojection against the previous frame, restarting spatially
         when the frame does not follow it. Debug: the albedo AOV."""
-        mode = self.option.render_mode
-        if mode == RenderMode.DEBUG:
-            return aovs["albedo"]
-        if mode not in DENOISE_MODES:
-            return aovs["color"]
-        from henjou_torch.post import denoise as dn
+        with span("frame.finalize"):
+            mode = self.option.render_mode
+            if mode == RenderMode.DEBUG:
+                return aovs["albedo"]
+            if mode not in DENOISE_MODES:
+                return aovs["color"]
+            from henjou_torch.post import denoise as dn
 
-        # the AOVs go up to the device once per frame
-        dev = {k: (torch.as_tensor(aovs[k], dtype=torch.float32, device=self.device)
-                   if aovs.get(k) is not None else None)
-               for k in ("color", "albedo", "normal", "variance", "count")}
-        if mode == RenderMode.DENOISE_TEMPORAL:
-            return self._finalize_temporal(dev, frame).cpu().numpy()
-        out = self._spatial_denoise(dev)
-        if mode == RenderMode.DENOISE_UPSCALE2X:
-            guides = self._full_res_guides(frame)
-            if guides is not None:
-                out = dn.upscale2x_guided(out, dev["albedo"], dev["normal"], *guides)
+            # the AOVs go up to the device once per frame
+            with span("finalize.upload"):
+                dev = {k: (torch.as_tensor(aovs[k], dtype=torch.float32, device=self.device)
+                           if aovs.get(k) is not None else None)
+                       for k in ("color", "albedo", "normal", "variance", "count")}
+            if mode == RenderMode.DENOISE_TEMPORAL:
+                out = self._finalize_temporal(dev, frame)
             else:
-                out = dn.upscale2x(out)
-        return out.cpu().numpy()
+                with span("finalize.denoise"):
+                    out = self._spatial_denoise(dev)
+                if mode == RenderMode.DENOISE_UPSCALE2X:
+                    guides = self._full_res_guides(frame)
+                    with span("finalize.denoise"):
+                        out = (dn.upscale2x_guided(out, dev["albedo"], dev["normal"], *guides)
+                               if guides is not None else dn.upscale2x(out))
+            with span("finalize.readback"):
+                return out.cpu().numpy()
 
     def _finalize_temporal(self, dev: dict, frame):
         """DenoiseTemporal on the device tensors `dev`. History is used only
@@ -868,45 +892,42 @@ class Renderer:
         if frame is not None and self.device_scene is not None:
             # the depth probe for motion-compensated history, also on the
             # first frame so its camera is banked for the next
-            t0 = time.monotonic()
-            frame_scene, accel, cam = self.frame_scene(frame)
-            pos, hitm = _temporal_depth_probe(frame_scene, self.sky, cam, accel,
-                                              color.shape[1], color.shape[0])
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            log.info("temporal depth probe: %.3fs (%dx%d)", time.monotonic() - t0,
-                     color.shape[1], color.shape[0])
-        prev_cam = self._temporal_prev_cam
-        # pre-filter accumulation state: (raw mean, variance of the mean,
-        # effective count, albedo, normal)
-        raw_hist = self._temporal_raw
-        variance, cnt = dev["variance"], dev["count"]
-        have_film = variance is not None and cnt is not None
-        new_raw = None
-        if prev is None or prev[0].shape != color.shape or not sequential:
-            out = self._spatial_denoise(dev)
-        elif cam is not None and prev_cam is not None and pos is not None:
-            from henjou_torch.runtime.camera import project_to_pixel
+            with span("finalize.probe"):
+                frame_scene, accel, cam = self.frame_scene(frame)
+                pos, hitm = _temporal_depth_probe(frame_scene, self.sky, cam, accel,
+                                                  color.shape[1], color.shape[0])
+        with span("finalize.denoise"):
+            prev_cam = self._temporal_prev_cam
+            # pre-filter accumulation state: (raw mean, variance of the mean,
+            # effective count, albedo, normal)
+            raw_hist = self._temporal_raw
+            variance, cnt = dev["variance"], dev["count"]
+            have_film = variance is not None and cnt is not None
+            new_raw = None
+            if prev is None or prev[0].shape != color.shape or not sequential:
+                out = self._spatial_denoise(dev)
+            elif cam is not None and prev_cam is not None and pos is not None:
+                from henjou_torch.runtime.camera import project_to_pixel
 
-            h, w = color.shape[0], color.shape[1]
-            px, py, infront = project_to_pixel(prev_cam, pos.reshape(-1, 3), w, h)
-            px = px.reshape(h, w)
-            py = py.reshape(h, w)
-            valid = infront.reshape(h, w) & hitm
-            if have_film and raw_hist is not None and raw_hist[0].shape == color.shape:
-                merged, var_m, n_eff = dn.temporal_accumulate(
-                    color, variance, cnt, albedo, normal, *raw_hist, px, py, valid)
-                out = self._spatial_denoise(dict(dev, color=merged, variance=var_m))
-                new_raw = (merged, var_m, n_eff, albedo, normal)
+                h, w = color.shape[0], color.shape[1]
+                px, py, infront = project_to_pixel(prev_cam, pos.reshape(-1, 3), w, h)
+                px = px.reshape(h, w)
+                py = py.reshape(h, w)
+                valid = infront.reshape(h, w) & hitm
+                if have_film and raw_hist is not None and raw_hist[0].shape == color.shape:
+                    merged, var_m, n_eff = dn.temporal_accumulate(
+                        color, variance, cnt, albedo, normal, *raw_hist, px, py, valid)
+                    out = self._spatial_denoise(dict(dev, color=merged, variance=var_m))
+                    new_raw = (merged, var_m, n_eff, albedo, normal)
+                else:
+                    out = dn.denoise_temporal_reprojected(
+                        color, albedo, normal, *prev, px, py, valid,
+                        spatial=self._spatial_denoise(dev))
             else:
-                out = dn.denoise_temporal_reprojected(
-                    color, albedo, normal, *prev, px, py, valid,
-                    spatial=self._spatial_denoise(dev))
-        else:
-            out = dn.denoise_temporal(color, albedo, normal, *prev,
-                                      spatial=self._spatial_denoise(dev))
-        if new_raw is None and have_film:
-            new_raw = (color, variance, cnt, albedo, normal)
+                out = dn.denoise_temporal(color, albedo, normal, *prev,
+                                          spatial=self._spatial_denoise(dev))
+            if new_raw is None and have_film:
+                new_raw = (color, variance, cnt, albedo, normal)
         self._temporal_raw = new_raw
         self._temporal_history = (out, albedo, normal)
         self._temporal_prev_frame = frame
@@ -930,16 +951,11 @@ class Renderer:
         device scene (the caller then upscales bilinearly)."""
         if self.device_scene is None:
             return None
-        t0 = time.monotonic()
-        frame_scene, accel, cam = self.frame_scene(frame or 0)
-        opt = self.option
-        alb, nrm = _guide_probe(frame_scene, self.sky, cam, accel, opt.image_width,
+        with span("finalize.probe"):
+            frame_scene, accel, cam = self.frame_scene(frame or 0)
+            opt = self.option
+            return _guide_probe(frame_scene, self.sky, cam, accel, opt.image_width,
                                 opt.image_height)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        log.info("upscale guide probe: %.3fs (%dx%d)", time.monotonic() - t0,
-                 opt.image_width, opt.image_height)
-        return alb, nrm
 
     def _load_scene_from_option(self):
         opt = self.option
@@ -957,6 +973,17 @@ class Renderer:
             raise ValueError(f"unsupported scene file: {path}")
         self.setup_stats["load_s"] = time.monotonic() - t0
         self.build()
+
+
+def _with_spans(entry: dict) -> dict:
+    """A frame_stats entry with the spans and counters recorded during its
+    frame (`utils/timer.py`), where there were any."""
+    spans, counts = timer.take()
+    if spans:
+        entry["spans"] = spans
+    if counts:
+        entry["counters"] = counts
+    return entry
 
 
 PROBE_CHUNK = 1 << 16

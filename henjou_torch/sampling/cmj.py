@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from henjou_torch.utils.timer import span
+
 CMJ_M = 4
 CMJ_N = 4
 M32 = 0xFFFFFFFF
@@ -61,17 +63,18 @@ def _u32(x, device=None):
 
 
 def make_cmj_state(n_spp, image_idx, seed=0, sobol: bool = False) -> CMJState:
-    image_idx = _u32(image_idx)
-    n_spp = _u32(n_spp, image_idx.device)
-    shape = torch.broadcast_shapes(n_spp.shape, image_idx.shape)
-    zero = torch.zeros(shape, dtype=torch.int64, device=image_idx.device)
-    return CMJState(
-        n_spp=n_spp.expand(shape) + zero,
-        scramble=_u32(seed, image_idx.device).expand(shape) + zero,
-        depth=zero,
-        image_idx=image_idx.expand(shape) + zero,
-        sobol=bool(sobol),
-    )
+    with span("sampling.draw"):
+        image_idx = _u32(image_idx)
+        n_spp = _u32(n_spp, image_idx.device)
+        shape = torch.broadcast_shapes(n_spp.shape, image_idx.shape)
+        zero = torch.zeros(shape, dtype=torch.int64, device=image_idx.device)
+        return CMJState(
+            n_spp=n_spp.expand(shape) + zero,
+            scramble=_u32(seed, image_idx.device).expand(shape) + zero,
+            depth=zero,
+            image_idx=image_idx.expand(shape) + zero,
+            sobol=bool(sobol),
+        )
 
 
 def xxhash32(x, y, z, w):
@@ -149,8 +152,8 @@ def _cmj(index, scramble):
     return fx, fy
 
 
-def cmj_2d(state: CMJState):
-    """Draw a 2D sample; returns ((x, y) [..., 2], new_state)."""
+def _draw_2d(state: CMJState):
+    """`cmj_2d` without its span: the draw that every form takes."""
     index = state.n_spp % (CMJ_M * CMJ_N)
     scramble = xxhash32(
         state.n_spp // (CMJ_M * CMJ_N),
@@ -171,21 +174,30 @@ def cmj_2d(state: CMJState):
     return torch.stack([fx, fy], dim=-1), new_state
 
 
+def cmj_2d(state: CMJState):
+    """Draw a 2D sample; returns ((x, y) [..., 2], new_state)."""
+    with span("sampling.draw"):
+        return _draw_2d(state)
+
+
 def cmj_1d(state: CMJState):
     """A 2D draw's x component."""
-    xi, state = cmj_2d(state)
-    return xi[..., 0], state
+    with span("sampling.draw"):
+        xi, state = _draw_2d(state)
+        return xi[..., 0], state
 
 
 def cmj_3d(state: CMJState):
     """A 2D draw, then a 1D draw; returns ([..., 3], new_state)."""
-    xi2, state = cmj_2d(state)
-    x1, state = cmj_1d(state)
-    return torch.cat([xi2, x1[..., None]], dim=-1), state
+    with span("sampling.draw"):
+        xi2, state = _draw_2d(state)
+        x1, state = _draw_2d(state)
+        return torch.cat([xi2, x1[..., :1]], dim=-1), state
 
 
 def cmj_4d(state: CMJState):
     """Two 2D draws; returns ([..., 4], new_state)."""
-    a, state = cmj_2d(state)
-    b, state = cmj_2d(state)
-    return torch.cat([a, b], dim=-1), state
+    with span("sampling.draw"):
+        a, state = _draw_2d(state)
+        b, state = _draw_2d(state)
+        return torch.cat([a, b], dim=-1), state

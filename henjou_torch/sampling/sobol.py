@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from henjou_torch.sampling.cmj import M32, _mul
+from henjou_torch.utils.timer import span
 
 
 def _gen_dim2_dirs() -> np.ndarray:
@@ -112,13 +113,14 @@ def sobol_pair(n_spp, image_idx, dim, seed):
     The bit reversal is an involution, so the x value's scramble of the
     reversed index, reverse(LK(reverse(reverse(idx)))), is computed as
     reverse(LK(idx)): the same bits with two reversals fewer."""
-    base = _key_base(image_idx, dim)
-    k_shuffle = _finish_key(base, seed ^ 0x5B1DE5A7)
-    k_x = _finish_key(base, seed ^ 0xA341316C)
-    k_y = _finish_key(base, seed ^ 0xC8013EA4)
-    idx = nested_uniform_scramble(n_spp, k_shuffle)
-    ux = reverse_bits_u32(_laine_karras(idx, k_x))
-    uy = nested_uniform_scramble(_sobol_dim2_u32(idx), k_y)
-    fx = (ux >> 8).to(torch.float32) * _INV_2_24
-    fy = (uy >> 8).to(torch.float32) * _INV_2_24
-    return fx, fy
+    with span("sampling.draw"):
+        base = _key_base(image_idx, dim)
+        k_shuffle = _finish_key(base, seed ^ 0x5B1DE5A7)
+        k_x = _finish_key(base, seed ^ 0xA341316C)
+        k_y = _finish_key(base, seed ^ 0xC8013EA4)
+        idx = nested_uniform_scramble(n_spp, k_shuffle)
+        ux = reverse_bits_u32(_laine_karras(idx, k_x))
+        uy = nested_uniform_scramble(_sobol_dim2_u32(idx), k_y)
+        fx = (ux >> 8).to(torch.float32) * _INV_2_24
+        fy = (uy >> 8).to(torch.float32) * _INV_2_24
+        return fx, fy

@@ -45,17 +45,27 @@ def test_cli_cornell_without_option(tmp_path, monkeypatch):
 
 
 def test_cli_profile_writes_summary(tmp_path, monkeypatch):
-    """--profile on the CPU: the trace, the op table and a summary whose
-    device fields say there was no device."""
+    """--profile on the CPU: the trace, the op table, every frame's spans
+    and counters (spans.json), and a summary of the frames whose device
+    field says there was no device, so no idle time by span."""
     monkeypatch.chdir(tmp_path)
     prof = tmp_path / "prof"
     assert render.main(["--device", "cpu", "--size", "8x8", "--spp", "1",
                         "--profile", str(prof)]) == 0
     import json
 
+    from henjou_torch.utils.timer import NAMES
+
     summary = json.loads((prof / "summary.json").read_text())
-    assert summary["device"] == "cpu" and summary["device_idle_share"] is None
-    assert summary["frames"][0]["spp"] == 1
+    assert summary["device"] == "cpu" and summary["idle_s_by_span"] is None
+    assert summary["frames"][0]["spp"] == 1 and "spans" not in summary["frames"][0]
+    frames = json.loads((prof / "spans.json").read_text())
+    assert [f["frame"] for f in frames] == [s["frame"] for s in summary["frames"]]
+    names = {s[0] for s in frames[0]["spans"]}
+    assert {"frame.render", "engine.bounce", "engine.trace"} <= names <= set(NAMES)
+    # each of the 64 samples holds a lane for one iteration at least
+    c = frames[0]["counters"]
+    assert 64 <= c["engine.lanes_valid"] <= c["engine.lane_slots"]
     assert (prof / "trace.json.gz").stat().st_size > 0 and (prof / "ops.txt").exists()
 
 
