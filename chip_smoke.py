@@ -141,7 +141,14 @@ prints no result. Phases, each of which raises on failure:
     1e-6 of the CPU, ``wavefront_pathtrace`` on the gallery with its
     default intersector (binned inside the bitonic sorted wrapper) against
     the plain versions (64x36, 4 spp, 4096 lanes, as phase 6), then at
-    512x288, 4 spp, 65,536 lanes with spp/s and Mrays/s.
+    512x288, 4 spp, 65,536 lanes with spp/s and Mrays/s;
+25. the CMJ draw kernel (``csrc/cmj.cu``) at 131,072 and 921,600 lanes
+    (the masked tile and a 1280x720 frame), `cmj_2d` and `cmj_4d` on a
+    state as the engines make it: values and the new depth bit-equal to
+    the torch code on the same state; each timed per call by CUDA events
+    (the wrapper's host cost included, as the engines pay it), as the
+    replay of a CUDA graph (the device alone), and the torch code by CUDA
+    events, beside the bound (its bytes at 3.35 TB/s).
 
 Launch counters are zeroed just before, and read just after, each path
 that drives kernels through a user's entry point: phase 7's kernel
@@ -155,9 +162,10 @@ its comparisons), and phases 20-24: each option's render (Sobol, RIS,
 adaptive, the pool re-sort, whose bitonic launches are all 27-column
 pool sorts), the two sharding processes' renders, summed, and phase 24's
 full-size `wavefront_pathtrace` (``api``). Each kernel
-of a path must have grown there. The kernels line reports, as
-`launches`, the bitonic and binned counts of the main path, with each of
-phases 16-24's under `launches_by_path`; the
+of a path must have grown there; every path draws, so the CMJ kernel's
+count with them. The kernels line reports, as
+`launches`, the bitonic, binned and CMJ counts of the main path, with each
+of phases 16-24's under `launches_by_path`; the
 two-level kernel's of phases 11-12, the flat and matrix kernels' of
 phase 7, and the network kernels' of
 phase 13 (its tools' rows are that path). The line before the last is the
@@ -1319,6 +1327,7 @@ def _shard_worker(rank, store, out_dir, device, size):
     import torch.distributed as dist
 
     from henjou_torch.accel import bitonic, pallas_binned
+    from henjou_torch.sampling import cmj
 
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=SHARD_WORLD,
                             rank=rank)
@@ -1326,11 +1335,11 @@ def _shard_worker(rank, store, out_dir, device, size):
         dev = torch.device(device)
         r = _renderer(dev, GALLERY, max_spp=SHARD_SPP, spp_batch=1, image_width=size[0],
                       image_height=size[1])
-        bitonic.LAUNCHES = pallas_binned.LAUNCHES = 0
+        bitonic.LAUNCHES = pallas_binned.LAUNCHES = cmj.LAUNCHES = 0
         out = r.render_frame(0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        launches = dict(bitonic=bitonic.LAUNCHES, binned=pallas_binned.LAUNCHES)
+        launches = dict(bitonic=bitonic.LAUNCHES, binned=pallas_binned.LAUNCHES, cmj=cmj.LAUNCHES)
         spp, saves, film = _adaptive_frame(dev, out_dir)
         adaptive = {} if film is None else dict(adaptive_color=film["color"],
                                                  adaptive_count=film["count"],
@@ -1397,7 +1406,7 @@ def phase_sharded(dev, tmp, size=GALLERY_SIZE):
         f"rendered it alone ({int(r0['adaptive_saves'])} checkpoint writes), rank 1 0 spp and "
         f"no writes, no checkpoint left; rank 0 against one process: RMSE {rmse:.3g}, counts "
         "and traces equal")
-    return {k: int(sum(got[k] for got in ranks)) for k in ("bitonic", "binned")}
+    return {k: int(sum(got[k] for got in ranks)) for k in ("bitonic", "binned", "cmj")}
 
 
 API_LANES = 1 << 16
@@ -1484,6 +1493,44 @@ def phase_api(dev, zero, counts):
         f"{4 / secs:.3f} spp/s, {int(film.n_traces)} traces, "
         f"{int(film.n_traces) / secs / 1e6:.3f} Mrays/s; launches {launches}")
     return launches
+
+
+CMJ_LANES = (1 << 17, 1280 * 720)
+CMJ_STATE_BYTES = 4 * 8  # n_spp, scramble, depth, image_idx in
+
+
+def phase_cmj(dev, results):
+    """Phase 25: `cmj_2d` and `cmj_4d` through ``csrc/cmj.cu`` at each of
+    CMJ_LANES on a state as the engines make it (`make_cmj_state`, depth
+    advanced): values and depth bit-equal to the torch code on the same
+    state; the draw per call by CUDA events and as a CUDA graph replay, the
+    torch code by CUDA events, and the bound (the state read, the values
+    and the new depth written, at 3.35 TB/s)."""
+    from henjou_torch.sampling import cmj
+
+    rng = np.random.default_rng(25)
+    rows = {}
+    for n in CMJ_LANES:
+        spp = torch.from_numpy(rng.integers(0, 4096, n)).to(dev)
+        pix = torch.from_numpy(rng.integers(0, n, n)).to(dev)
+        st = cmj.make_cmj_state(spp, pix, int(rng.integers(0, 1 << 31)))
+        st = st._replace(depth=torch.from_numpy(rng.integers(0, 40, n)).to(dev))
+        for width, draw in ((2, cmj.cmj_2d), (4, cmj.cmj_4d)):
+            got, got_st = draw(st)
+            want, want_st = cmj.draw_plain(st, width)
+            if not (torch.equal(got, want) and torch.equal(got_st.depth, want_st.depth)):
+                raise AssertionError(f"[cmj] {draw.__name__} at {n} lanes differs from the torch code")
+            ms = cuda_ms(lambda: draw(st), 200)
+            g_ms = graph_ms(lambda: draw(st), 200)
+            plain_ms = cuda_ms(lambda: cmj.draw_plain(st, width), 10)
+            bound_ms, bound_by = bound(n * (CMJ_STATE_BYTES + 4 * width + 8))
+            rows[f"{draw.__name__}@{n}"] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                                                 bound_ms=bound_ms, bound_by=bound_by)
+            log(f"[cmj] {draw.__name__} {n} lanes: bit-equal to the torch code; kernel "
+                f"{_fmt_ms(ms)} per call ({_fmt_ms(g_ms)} as a graph), torch code "
+                f"{_fmt_ms(plain_ms)}, bound {_fmt_ms(bound_ms)} ({bound_by})")
+    main = rows[f"cmj_2d@{CMJ_LANES[0]}"]
+    results["cmj"] = dict(main, by_shape=rows)
 
 
 def _net_forms(bn, st, plain_st):
@@ -1711,6 +1758,7 @@ def main() -> int:
         sys.exit("chip_smoke: CUDA is not available")
     from henjou_torch import csrc
     from henjou_torch.accel import bitonic, pallas_binned, pallas_cluster_hbm
+    from henjou_torch.sampling import cmj
 
     dev = torch.device("cuda", 0)
     device_name = torch.cuda.get_device_name(0)
@@ -1731,11 +1779,12 @@ def main() -> int:
     phase_light_query(dev)
 
     def zero():
-        for m in (bitonic, pallas_binned, pallas_cluster_hbm):
+        for m in (bitonic, pallas_binned, pallas_cluster_hbm, cmj):
             m.LAUNCHES = 0
 
     def counts():
-        return {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES}
+        return {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES,
+                "cmj": cmj.LAUNCHES}
 
     with tempfile.TemporaryDirectory() as tmp:
         # the main path: the gallery in every render mode, then the contest
@@ -1748,7 +1797,7 @@ def main() -> int:
         phase_gallery_modes(tmp)
         after_modes = (bitonic.LAUNCHES, pallas_binned.LAUNCHES)
         aovs0 = phase_contest(dev, tmp)
-        launches = {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES}
+        launches = counts()
         if min(launches[k] - v for k, v in zip(("bitonic", "binned"), after_modes)) <= 0:
             raise AssertionError(f"[contest] a kernel was not launched: {launches}")
         log(f"[launches] main path (gallery in four modes + contest as shipped): {launches}")
@@ -1790,6 +1839,9 @@ def main() -> int:
         t0 = time.monotonic()
         by_path["api"] = phase_api(dev, zero, counts)
         log(f"[phase 24] {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        phase_cmj(dev, results)
+        log(f"[phase 25] {time.monotonic() - t0:.2f} s")
         for path, got in by_path.items():
             if min(got.values()) == 0:
                 raise AssertionError(f"[{path}] a kernel was not launched: {got}")
@@ -1807,14 +1859,17 @@ def main() -> int:
         ("cluster_hbm_intersect", "cluster_hbm", "cluster_hbm.cu",
          "henjou_tpu/accel/pallas_cluster_hbm.py:111"),
         ("mxu_intersect", "mxu", "mxu.cu", "henjou_tpu/accel/pallas_mxu.py:156"),
+        ("cmj_draw", "cmj", "cmj.cu", "none: henjou_tpu/sampling/cmj.py and sobol.py are "
+                                      "plain jnp code"),
     ] + [(k, k, "bitonic_net.cu", NET_REPLACES[k]) for k in NET_REPLACES]
     kernels = [
         dict(name=name, route="cuda", source=f"henjou_torch/csrc/{src}", replaces=replaces,
              launches=launches[key],
              **({"launches_by_path": {p: got[key] for p, got in by_path.items()}}
-                if key in ("bitonic", "binned") else {}),
+                if key in ("bitonic", "binned", "cmj") else {}),
              **{f: results[key][f] for f in ("max_abs_err", "ms", "sorted_ms", "masked_ms",
-                                             "plain_ms", "bound_ms", "bound_by", "library_ms")
+                                             "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "by_shape")
                 if f in results[key]})
         for name, key, src, replaces in table
     ]

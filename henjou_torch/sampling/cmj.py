@@ -18,15 +18,27 @@ SOBOL_SEED_FLAG, and the CMJ values on the others, as the JAX package's
 Here the choice rides on the state (a static field that every draw keeps),
 so two renderers in one process cannot share it. With ``sobol=False``
 (the default) the Sobol pair is not computed at all.
+
+On a CUDA state every draw (`cmj_1d` to `cmj_4d`) is one launch of
+``csrc/cmj.cu``, which computes the same bits in native u32 arithmetic
+(the Sobol pair included) and returns a new `depth` tensor; the state's
+fields must be int64 tensors of one shape on one device. Any other state
+takes the torch code below, the plain version (`draw_plain`). ``LAUNCHES``
+counts the draws that went through the kernel's entry point (a draw of no
+lanes launches nothing); under a profiler session the counters
+``sampling.draws`` and ``sampling.draws_kernel`` count every draw and
+those through the kernel.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
-from henjou_torch.utils.timer import span
+from henjou_torch.csrc import INT, PTR, bind, check
+from henjou_torch.utils.timer import count, span
 
 CMJ_M = 4
 CMJ_N = 4
@@ -34,6 +46,8 @@ M32 = 0xFFFFFFFF
 # seed tag bit selecting the Sobol sampler for a lane (the low 31 seed
 # bits mean the same in both samplers)
 SOBOL_SEED_FLAG = 0x80000000
+
+LAUNCHES = 0
 
 
 def _mul(a, b):
@@ -174,30 +188,70 @@ def _draw_2d(state: CMJState):
     return torch.stack([fx, fy], dim=-1), new_state
 
 
+def draw_plain(state: CMJState, width: int):
+    """The torch code of a draw of `width` components (1: `cmj_1d`, 2:
+    `cmj_2d`, 3: `cmj_3d`, 4: `cmj_4d`) on any device."""
+    xi, state = _draw_2d(state)
+    if width == 1:
+        return xi[..., 0], state
+    if width == 2:
+        return xi, state
+    b, state = _draw_2d(state)
+    return torch.cat([xi, b[..., :width - 2]], dim=-1), state
+
+
+@functools.cache
+def _kernel_fn():
+    return bind("henjou_cmj_draw", [PTR, PTR, PTR, PTR, INT, INT, INT, PTR, PTR, PTR])
+
+
+def _draw_cuda(state: CMJState, width: int):
+    """One launch of csrc/cmj.cu on the state's device's current stream."""
+    global LAUNCHES
+    fields = (state.n_spp, state.scramble, state.depth, state.image_idx)
+    shape, dev = state.n_spp.shape, state.n_spp.device
+    for name, x in zip(CMJState._fields, fields):
+        if x.dtype != torch.int64 or x.shape != shape or x.device != dev:
+            raise ValueError(f"state.{name} must be int64 of shape {tuple(shape)} on {dev}, "
+                             f"got {x.dtype} of shape {tuple(x.shape)} on {x.device}")
+    fields = [x.contiguous() for x in fields]
+    out = torch.empty((*shape, width) if width > 1 else shape, dtype=torch.float32, device=dev)
+    depth = torch.empty(shape, dtype=torch.int64, device=dev)
+    err = _kernel_fn()(*(x.data_ptr() for x in fields), fields[0].numel(), width,
+                       int(state.sobol), out.data_ptr(), depth.data_ptr(),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "henjou_cmj_draw")
+    LAUNCHES += 1
+    count("sampling.draws_kernel", 1)
+    return out, state._replace(depth=depth)
+
+
+def _draw(state: CMJState, width: int):
+    count("sampling.draws", 1)
+    if state.n_spp.is_cuda:
+        return _draw_cuda(state, width)
+    return draw_plain(state, width)
+
+
 def cmj_2d(state: CMJState):
     """Draw a 2D sample; returns ((x, y) [..., 2], new_state)."""
     with span("sampling.draw"):
-        return _draw_2d(state)
+        return _draw(state, 2)
 
 
 def cmj_1d(state: CMJState):
     """A 2D draw's x component."""
     with span("sampling.draw"):
-        xi, state = _draw_2d(state)
-        return xi[..., 0], state
+        return _draw(state, 1)
 
 
 def cmj_3d(state: CMJState):
     """A 2D draw, then a 1D draw; returns ([..., 3], new_state)."""
     with span("sampling.draw"):
-        xi2, state = _draw_2d(state)
-        x1, state = _draw_2d(state)
-        return torch.cat([xi2, x1[..., :1]], dim=-1), state
+        return _draw(state, 3)
 
 
 def cmj_4d(state: CMJState):
     """Two 2D draws; returns ([..., 4], new_state)."""
     with span("sampling.draw"):
-        a, state = _draw_2d(state)
-        b, state = _draw_2d(state)
-        return torch.cat([a, b], dim=-1), state
+        return _draw(state, 4)

@@ -1,13 +1,19 @@
-"""Port parity: the CMJ sampler (bit-equal) and the camera (to 1e-6)."""
+"""Port parity: the CMJ sampler (bit-equal) and the camera (to 1e-6); the
+draw wrapper's routing on the CPU: a CPU state takes the torch code and
+launches nothing, the draw counters record under a profiler, and the CUDA
+wrapper refuses a state whose fields it cannot take before any launch
+(tests/test_torch_cuda.py holds the kernel against the torch code)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from henjou_torch import interop
 from henjou_torch.runtime import camera as tcam
 from henjou_torch.sampling import cmj as tcmj
+from henjou_torch.utils import timer
 from henjou_tpu.runtime import camera as jcam
 from henjou_tpu.sampling import cmj as jcmj
 
@@ -86,3 +92,71 @@ def test_camera_rays_match(w, h):
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-6, rtol=0)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-6, rtol=0)
     np.testing.assert_array_equal(np.asarray(js.depth).astype(np.int64), ts.depth.numpy())
+
+
+def test_chain_of_five_draws_bit_equal_to_jax():
+    """cmj_2d, cmj_1d, cmj_4d, cmj_3d, cmj_2d threaded through one state,
+    depth starting at 0xFFFFFFFF - 2 so the counter wraps on the way."""
+    rng = np.random.default_rng(17)
+    n = 4096
+    spp, pix = _u32(rng, n), _u32(rng, n)
+    js, ts = _states(spp, pix, np.full(n, 0xFFFFFFFD, np.uint32), 0xFFFFFFFF)
+    for name in ("cmj_2d", "cmj_1d", "cmj_4d", "cmj_3d", "cmj_2d"):
+        a, js = getattr(jcmj, name)(js)
+        b, ts = getattr(tcmj, name)(ts)
+        _assert_bits(a, b)
+        np.testing.assert_array_equal(np.asarray(js.depth).astype(np.int64), ts.depth.numpy())
+
+
+def _kernel_must_not_run():
+    raise AssertionError("the CUDA kernel was bound")
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 4])
+def test_cpu_state_takes_the_plain_path(width, monkeypatch):
+    """A CPU state never reaches the kernel: `LAUNCHES` stays, the values
+    are the torch code's, and the state given is left as it was."""
+    monkeypatch.setattr(tcmj, "_kernel_fn", _kernel_must_not_run)
+    rng = np.random.default_rng(width)
+    spp, pix, depth = _u32(rng, 1000), _u32(rng, 1000), _u32(rng, 1000)
+    _, st = _states(spp, pix, depth, 12345)
+    before = [x.clone() for x in st[:4]]
+    launches = tcmj.LAUNCHES
+    got, new = getattr(tcmj, f"cmj_{width}d")(st)
+    want, want_st = tcmj.draw_plain(st, width)
+    assert tcmj.LAUNCHES == launches
+    assert got.shape == ((1000, width) if width > 1 else (1000,))
+    assert torch.equal(got, want) and torch.equal(new.depth, want_st.depth)
+    assert torch.equal(new.depth, (st.depth + (1 if width <= 2 else 2)) & tcmj.M32)
+    for a, b in zip(st[:4], before):
+        assert torch.equal(a, b)
+
+
+def test_draw_counters_record_under_a_profiler():
+    """`sampling.draws` counts every draw (not `make_cmj_state`), and a CPU
+    draw adds nothing to `sampling.draws_kernel`; off the profiler, nothing."""
+    st = tcmj.make_cmj_state(torch.arange(64), torch.arange(64), 3)
+    timer.take()
+    tcmj.cmj_2d(st)
+    assert timer.take() == ([], {})
+    with profile(activities=[ProfilerActivity.CPU]):
+        st = tcmj.make_cmj_state(torch.arange(64), torch.arange(64), 3)
+        for draw in (tcmj.cmj_1d, tcmj.cmj_2d, tcmj.cmj_3d, tcmj.cmj_4d):
+            _, st = draw(st)
+    spans, counts = timer.take()
+    assert counts == {"sampling.draws": 4}
+    assert [s[0] for s in spans] == ["sampling.draw"] * 5
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "device"])
+def test_cuda_wrapper_rejects_fields_it_cannot_take(fault, monkeypatch):
+    """The kernel's wrapper checks the four fields before it binds or
+    launches anything: int64, one shape, one device."""
+    monkeypatch.setattr(tcmj, "_kernel_fn", _kernel_must_not_run)
+    st = tcmj.make_cmj_state(torch.arange(8), torch.arange(8), 1)
+    bad = {"dtype": st.depth.to(torch.int32), "shape": st.depth[:4],
+           "device": torch.empty(8, dtype=torch.int64, device="meta")}[fault]
+    launches = tcmj.LAUNCHES
+    with pytest.raises(ValueError, match="state.depth"):
+        tcmj._draw_cuda(st._replace(depth=bad), 2)
+    assert tcmj.LAUNCHES == launches

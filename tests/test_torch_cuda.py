@@ -1,9 +1,10 @@
-"""The CUDA kernels against their plain versions, on the card: 159 cases,
+"""The CUDA kernels against their plain versions, on the card: 243 cases,
 52 of them the cluster walk of the binned, flat, two-level and
 matrix-form kernels, 7 the denoiser's tensor ops on CUDA against the CPU,
 2 the sorted binned trace at the masked engine's 131,072-ray tile, 1
 the animated pack's refresh on CUDA against the CPU, 1 the Sobol draws
-on CUDA against the CPU and 1 the pool re-sort's 27-column sort.
+on CUDA against the CPU, 1 the pool re-sort's 27-column sort, and 84
+the CMJ draw kernel against the torch code on the same CUDA state.
 
 These need an NVIDIA GPU and nvcc; without them they skip. The tests
 directory's conftest imports jax, which the GPU machine may not have, so
@@ -550,3 +551,66 @@ def test_pool_sort_27_columns_matches_plain(cuda):
     assert bitonic.LAUNCHES == before + 1
     for g, w in zip(got, bitonic.bitonic_sort_plain(key, *planes)):
         assert torch.equal(g.cpu(), w)
+
+
+def _cmj_state(cuda, shape, sobol, seed):
+    """A CUDA state of random u32 fields from numpy, its first lanes the
+    edge values: 0 and 0xFFFFFFFF in every field, n_spp >= 16, depth
+    0xFFFFFFFF (which wraps); with `sobol`, the tag bit on every other
+    lane."""
+    from henjou_torch.sampling import cmj
+
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    f = rng.integers(0, 1 << 32, (4, n), dtype=np.uint64).astype(np.int64)
+    edge = np.array([[0, 0, 0, 0], [0xFFFFFFFF] * 4, [16, 7, 0xFFFFFFFF, 5],
+                     [4095, 0x7FFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF]], np.int64).T
+    k = min(n, edge.shape[1])
+    f[:, :k] = edge[:, :k]
+    if sobol:
+        f[1] = np.where(np.arange(n) % 2 == 0, f[1] | cmj.SOBOL_SEED_FLAG,
+                        f[1] & ~cmj.SOBOL_SEED_FLAG)
+    n_spp, scramble, depth, pix = (torch.from_numpy(x.reshape(shape)).to(cuda) for x in f)
+    return cmj.CMJState(n_spp=n_spp, scramble=scramble, depth=depth, image_idx=pix, sobol=sobol)
+
+
+@pytest.mark.parametrize("sobol", [False, True], ids=["cmj", "sobol"])
+@pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (131072,), (921600,), (0, 3), (1, 1),
+                                   (8, 125), (256, 512), (720, 1280)], ids=str)
+@pytest.mark.parametrize("width", [1, 2, 3, 4])
+def test_cmj_kernel_matches_plain(cuda, width, shape, sobol):
+    """One launch per draw, bit-equal to the torch code on the same state:
+    the values, their shape and the new depth; the state given unchanged."""
+    from henjou_torch.sampling import cmj
+
+    st = _cmj_state(cuda, shape, sobol, width * 7 + len(shape))
+    before = [x.clone() for x in st[:4]]
+    launches = cmj.LAUNCHES
+    got, new = getattr(cmj, f"cmj_{width}d")(st)
+    torch.cuda.synchronize()
+    assert cmj.LAUNCHES == launches + 1
+    want, want_st = cmj.draw_plain(st, width)
+    assert got.device == want.device and got.dtype == torch.float32
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(new.depth, want_st.depth) and new.sobol == sobol
+    for a, b in zip(st[:4], before):
+        assert torch.equal(a, b)
+    for name in ("n_spp", "scramble", "image_idx"):
+        assert getattr(new, name) is getattr(st, name)
+
+
+@pytest.mark.parametrize("sobol", [False, True], ids=["cmj", "sobol"])
+@pytest.mark.parametrize("shape", [(131072,), (720, 1280)], ids=str)
+def test_cmj_kernel_chain_of_five_draws(cuda, shape, sobol):
+    """cmj_2d, cmj_1d, cmj_4d, cmj_3d, cmj_2d threaded through one state on
+    the kernel and on the torch code: every value and depth bit-equal."""
+    from henjou_torch.sampling import cmj
+
+    st = plain = _cmj_state(cuda, shape, sobol, 5)
+    launches = cmj.LAUNCHES
+    for width in (2, 1, 4, 3, 2):
+        got, st = getattr(cmj, f"cmj_{width}d")(st)
+        want, plain = cmj.draw_plain(plain, width)
+        assert torch.equal(got, want) and torch.equal(st.depth, plain.depth)
+    torch.cuda.synchronize()
+    assert cmj.LAUNCHES == launches + 5

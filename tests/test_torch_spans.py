@@ -5,7 +5,7 @@ CPU at toy sizes:
   bit-equal to the same frame rendered under torch.profiler;
 - under the profiler, both engines' frames carry spans of the documented
   names, nested as opened, every trace inside a bounce; the wavefront
-  engine's lane counters;
+  engine's lane counters and both engines' draw counter;
 - a span's stamps share the clock of the profiler's events;
 - the functions the benchmark's hooks wrap stay module-level functions
   without a closure;
@@ -124,14 +124,16 @@ def test_traced_frames_carry_nested_spans(engine, out_dir):
             if sp[0].startswith("finalize."):
                 assert up[0] == "frame.finalize"
         n_bounce = sum(1 for sp in spans if sp[0] == "engine.bounce")
+        c = s["counters"]
+        # every draw is counted; on the CPU none goes through the kernel
+        assert c["sampling.draws"] > 0 and "sampling.draws_kernel" not in c
         if engine == "wavefront":
-            c = s["counters"]
             assert 0 < c["engine.lanes_valid"] <= c["engine.lane_slots"]
             # one bounce per iteration of the lanes' loop
             assert c["engine.lane_slots"] == n_bounce * 4096
             assert "engine.readback" in names
         else:
-            assert "counters" not in s and "engine.readback" not in names
+            assert set(c) == {"sampling.draws"} and "engine.readback" not in names
             assert n_bounce == 10  # one tile, one spp, the depth loop's 10 bounces
 
 
