@@ -12,7 +12,8 @@ unless given, at the cell's own load and size, so it compares as many
 frames as a run does), then judges the control's films at the checked pixels
 and its finalize of every frame (its own history, from an empty one)
 against the float32 reference, and prints one JSON line per seed with the
-numbers beside their limits. The benchmark's own runs do not run it."""
+numbers beside their limits, and the program's own numbers of the same run
+under "program". The benchmark's own runs do not run it."""
 
 import argparse
 import json
@@ -49,7 +50,8 @@ def main(argv=None):
                              process_start(), control=True)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "correct": result["correct"], "checks": result["checks"],
-                          "frames_checked": result["frames_checked"]}), flush=True)
+                          "frames_checked": result["frames_checked"],
+                          "program": result["program"]}), flush=True)
     return 0
 
 

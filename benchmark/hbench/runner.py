@@ -7,7 +7,14 @@ The last line of standard output is one JSON object (correct, attempted,
 failed, metrics, device, with --trace 1 breakdown, and last the numbers
 compared beside their limits); the same numbers are the last lines of
 standard error. Without a CUDA device, or with fewer than the cell asks
-for, it prints no result and exits 3."""
+for, it prints no result and exits 3.
+
+A cell on one chip renders in this process on `cuda`, with no process
+group. A cell on n > 1 chips renders as one process per GPU in an NCCL
+group, this process being rank 0 on `cuda:0` (hbench/group.py): every
+metric and the trace are rank 0's, the memory peak is the fullest GPU's,
+and the check judges rank 0's films, which hold the whole group's
+samples."""
 
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import sys
 import tempfile
 import time
 
-from hbench import spec
+from hbench import group, spec
 from hbench.check import film_numbers, final_numbers, judge
 from hbench.hooks import Hooks
 from hbench.window import Window, WindowClosed
@@ -75,8 +82,18 @@ def main(argv=None) -> int:
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 3
-    result, rows = run_cell(bench, entry, workload, config, args.seed, args.seconds,
-                            bool(args.trace), "cuda", t_start)
+    try:
+        result, rows = run_cell(bench, entry, workload, config, args.seed, args.seconds,
+                                bool(args.trace), "cuda", t_start)
+    except group.FollowerError as e:
+        print(f"no result: {e}", file=sys.stderr)
+        return group.FOLLOWER_FAILED
+    return report(result, rows)
+
+
+def report(result: dict, rows: list) -> int:
+    """Print a run's result (the exit code 0), or, where this process
+    holds a JAX module, no result (4)."""
     found = forbidden_modules()
     if found:
         print(f"no result: the process holds {', '.join(found)}", file=sys.stderr)
@@ -91,12 +108,15 @@ def run_cell(bench, entry, workload, config, seed, seconds, trace, device, t_sta
              control=False):
     """(result dict, [(name, value, limit)]) of one run on `device`. With
     `control`, the numbers are the control's (see control.py): the
-    reference in bfloat16 put in the program's place."""
+    reference in bfloat16 put in the program's place; the program's own
+    are then under the result's "program" key."""
     import torch
 
     cell = entry["name"]
+    chips = int(entry["chips"])
     cuda = torch.device(device).type == "cuda"
     out_dir = tempfile.mkdtemp(prefix=f"hbench-{cell}-")
+    leader = None
     try:
         opt = spec.run_option(config, workload, seed, out_dir)
         opt_path = os.path.join(out_dir, "option.json")
@@ -111,8 +131,14 @@ def run_cell(bench, entry, workload, config, seed, seconds, trace, device, t_sta
         pick = functools.lru_cache(maxsize=None)(
             lambda frame: spec.check_pixels(seed, frame, width * height,
                                             int(workload["check_pixels_per_frame"])))
-        group = "per_layer" if trace else "end_to_end"
-        wanted = [(m, spec.metric_reader(m["name"])) for m in spec.cell_metrics(bench, cell, group)]
+        kind = "per_layer" if trace else "end_to_end"
+        wanted = [(m, spec.metric_reader(m["name"])) for m in spec.cell_metrics(bench, cell, kind)]
+
+        if chips > 1:
+            # the followers start and the group forms before rank 0 builds
+            # its renderer, as the CLI's workers do
+            leader = group.Leader(chips, opt_path, torch.device(device).type)
+            device = str(leader.device)
 
         from henjou_torch.runtime.renderer import Renderer
 
@@ -143,20 +169,23 @@ def run_cell(bench, entry, workload, config, seed, seconds, trace, device, t_sta
             hooks.remove()
 
         win = Window(r, seconds, pick, (trace_start, trace_stop) if trace else None,
-                     warmup=int(workload.get("warmup_frames", 1)))
+                     warmup=int(workload.get("warmup_frames", 1)),
+                     lockstep=group.lockstep if leader else None)
         try:
             r.initialize_and_render(opt_path)
         except WindowClosed:
             pass
         else:
             raise RuntimeError("the frame loop ended before the window closed")
+        # the peak on the fullest chip: rank 0's, or a follower's
+        peak = leader.close() if leader else 0
 
         if cuda:
             torch.cuda.synchronize(device)
         dev_info = {"platform": "gpu" if cuda else "cpu",
                     "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-                    "count": int(entry["chips"]),
-                    "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))
+                    "count": chips,
+                    "memory_peak_bytes": max(peak, int(torch.cuda.max_memory_allocated(device)))
                     if cuda else 0}
         stats = r.frame_stats
         frames = win.window_frames(stats)
@@ -196,7 +225,14 @@ def run_cell(bench, entry, workload, config, seed, seconds, trace, device, t_sta
         ref = PlainRenderer(opt_path, device)
         ref_films = reference_films(ref, sorted(samples), pick, engine, spp)
         ref_images = reference_finals(ref, films)
+        program = None
         if control:
+            # the program's own numbers on the same seed, beside the control's
+            numbers = film_numbers(samples, ref_films)
+            numbers.update(final_numbers(images, ref_images))
+            ok, rows = judge(numbers, workload["limits"])
+            program = {"correct": bool(ok and failed == 0 and attempted > 0),
+                       "checks": {n: {"value": v, "limit": lim} for n, v, lim in rows}}
             low = PlainRenderer(opt_path, device, torch.bfloat16, torch.bfloat16)
             samples = reference_films(low, sorted(samples), pick, engine, spp)
             images = reference_finals(low, films)
@@ -212,7 +248,11 @@ def run_cell(bench, entry, workload, config, seed, seconds, trace, device, t_sta
         result["frame_s"] = [[f["frame"], f["render_s"], f["finalize_s"], f["total_s"]]
                              for f in frames]
         result["reference_s"] = time.monotonic() - t_ref
+        if program is not None:
+            result["program"] = program
         result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in rows}
         return result, rows
     finally:
+        if leader:
+            leader.kill()
         shutil.rmtree(out_dir, ignore_errors=True)

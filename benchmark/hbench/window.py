@@ -7,7 +7,9 @@ against a history). The window opens when the next frame starts and
 closes at the first frame start after `seconds`; there `WindowClosed`
 stops the frame loop, so the last frame in the window has been rendered, finalized,
 checkpointed and written. With `trace`, one more frame runs under the
-device trace and the hooks before the loop is stopped.
+device trace and the hooks before the loop is stopped. On a cell of n > 1
+chips this is rank 0's window: `lockstep` hands its decision to the other
+ranks at every frame start, the warm-up frames' included.
 
 For the check it keeps, of every frame in the window, the film's AOVs at
 the pixels `pick(frame)` names; and of every frame the loop finalized,
@@ -32,12 +34,16 @@ class WindowClosed(Exception):
 
 
 class Window:
-    def __init__(self, renderer, seconds: float, pick, trace=None, warmup: int = 1):
+    def __init__(self, renderer, seconds: float, pick, trace=None, warmup: int = 1,
+                 lockstep=None):
         self.r = renderer
         self.warmup = int(warmup)
         self.seconds = float(seconds)
         self.pick = pick
         self.trace = trace  # (start(), stop()) around the traced frame, or None
+        # on a cell of n > 1 chips, hands the stop to every rank at each
+        # frame start (hbench.group.lockstep); None on one chip
+        self.lockstep = lockstep
         self.first = None
         self.t_open = None
         self.t_close = None
@@ -52,6 +58,7 @@ class Window:
 
     def _render_frame(self, frame, *args, **kwargs):
         now = time.monotonic()
+        stop = start_trace = False
         if self.first is None:
             self.first = frame
         if frame < self.first + self.warmup:
@@ -60,12 +67,19 @@ class Window:
             self.t_open = now
         elif self.traced_frame is not None:
             self.trace[1]()
-            raise WindowClosed
+            stop = True
         elif now - self.t_open >= self.seconds:
             self.t_close = now
             if self.trace is None:
-                raise WindowClosed
-            self.traced_frame = frame
+                stop = True
+            else:
+                self.traced_frame = frame
+                start_trace = True
+        if self.lockstep is not None:
+            self.lockstep(stop)
+        if stop:
+            raise WindowClosed
+        if start_trace:
             self.trace[0]()
         aovs = self._render(frame, *args, **kwargs)
         if self.t_open is not None:

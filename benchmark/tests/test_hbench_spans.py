@@ -125,17 +125,17 @@ BENCH = spec.load_benchmark()
 
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_traced_toy_run_reports_the_span_metrics(cell):
+    """Every span metric that the cell lists is reported, under the cell's
+    own name for it, and no metric that the cell does not list."""
     res, _ = _run(cell, trace=True)
     assert res["correct"]
-    masked = cell.endswith(".masked")
-    want = {q + ".masked" if masked else q for q in KERNEL_FREE}
-    if not masked:
-        want.add("lane_occupancy_pct")
-    assert want <= set(res["metrics"]), sorted(res["metrics"])
-    # no device kernels on the CPU; the other cell's names are not reported
-    assert not {"launches_per_bounce", "idle_unattributed_pct"} & {
+    listed = {m["name"] for m in spec.cell_metrics(BENCH, cell, "per_layer")}
+    want = {m for m in listed if spec.quantity(m) in KERNEL_FREE + ("lane_occupancy_pct",)}
+    assert want and want <= set(res["metrics"]), sorted(res["metrics"])
+    assert set(res["metrics"]) <= listed
+    # no device kernels on the CPU
+    assert not {"launches_per_bounce", "idle_unattributed_pct", "allreduce_ms"} & {
         spec.quantity(m) for m in res["metrics"]}
-    assert not {q + ("" if masked else ".masked") for q in KERNEL_FREE} & set(res["metrics"])
-    for q in KERNEL_FREE:
-        v = res["metrics"][q + ".masked" if masked else q]["value"]
-        assert v > 0 and (not q.endswith("_pct") or v < 100)
+    for m in want - {"lane_occupancy_pct"}:
+        v = res["metrics"][m]["value"]
+        assert v > 0 and (not m.split(".")[0].endswith("_pct") or v < 100)

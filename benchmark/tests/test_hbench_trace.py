@@ -56,3 +56,17 @@ def test_short_name():
     assert short_name(long) == ("vectorized_elementwise_kernel<2, CUDAFunctor_add<long>,"
                                 " std::array<char*, 3ul> >")
     assert len(short_name("x" * 300)) == 120
+
+
+def test_allreduce_ms_counts_nccl_kernels_alone():
+    nccl = [("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+             20 * MS, 23 * MS),
+            ("ncclDevKernel_Broadcast_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+             30 * MS, 30 * MS + MS // 2)]
+    t = _trace()
+    read = spec.metric_reader("allreduce_ms").read
+    assert read({"trace": DeviceTrace(t.kernels + nccl, t.runtime, 0.040)}) == \
+        pytest.approx(3.5)
+    # a trace without NCCL kernels (one chip, or a gloo group), or none at all
+    assert read({"trace": t}) is None
+    assert read({}) is None
