@@ -27,8 +27,10 @@ intersector over the emissive subset above it
 Under a profiler, spans (`utils/timer.py`) mark the frame loop's parts
 (`frame.scene`, `frame.render`, `engine.step`, `frame.film_readback`,
 `frame.checkpoint`, `frame.finalize` with its probe and filters,
-`frame.output`); `initialize_and_render` moves each frame's spans and
-counters into its `frame_stats` entry (keys `spans`, `counters`).
+`frame.output`) and the accel's host pack, plan and device refresh inside
+the frame's scene (`accel.pack`, `accel.plan`, `accel.refresh`);
+`initialize_and_render` moves each frame's spans and counters into its
+`frame_stats` entry (keys `spans`, `counters`).
 
 The denoiser runs on the renderer's device: the engine's numpy AOVs go up
 once per frame and the temporal history stays there between frames. A
@@ -274,7 +276,8 @@ class Renderer:
             return None
         from henjou_torch.accel.pallas_binned import pack_binned_np
 
-        return pack_binned_np(frame_scene.tri_verts.cpu().numpy(), self.device)
+        with span("accel.pack"):
+            return pack_binned_np(frame_scene.tri_verts.cpu().numpy(), self.device)
 
     @staticmethod
     def _accel_adapters(accel):
@@ -388,16 +391,18 @@ class Renderer:
 
         ntris = int(fs.tri_verts.shape[0])
         if self._accel_plan is None and self._accel_cache is not None and ntris > 256:
-            offs = self.device_scene.prim_offsets.cpu().numpy()
-            counts = np.diff(np.append(offs, ntris))
-            order, c, group, g = pallas_binned.plan_binned_order(
-                fs.tri_verts.cpu().numpy(), list(zip(offs.tolist(), counts.tolist())))
-            self._accel_plan = (torch.from_numpy(order).to(self.device), c, group, g)
+            with span("accel.plan"):
+                offs = self.device_scene.prim_offsets.cpu().numpy()
+                counts = np.diff(np.append(offs, ntris))
+                order, c, group, g = pallas_binned.plan_binned_order(
+                    fs.tri_verts.cpu().numpy(), list(zip(offs.tolist(), counts.tolist())))
+                self._accel_plan = (torch.from_numpy(order).to(self.device), c, group, g)
             log.info("animated scene: cluster order planned (%d clusters, group %d); "
                      "the pack refreshes on the device from here on",
                      self._accel_plan[1], self._accel_plan[2])
         if self._accel_plan is not None:
-            return pallas_binned.build_binned_from_order(fs.tri_verts, *self._accel_plan)
+            with span("accel.refresh"):
+                return pallas_binned.build_binned_from_order(fs.tri_verts, *self._accel_plan)
         return self._select_accel(fs)
 
     def light_intersector(self, frame_scene):

@@ -39,6 +39,9 @@ NAMES = (
     "engine.readback",
     # the sorted trace (accel/sorting.py) and the pool sort
     "accel.sort", "accel.intersect", "accel.unsort",
+    # a frame's accel (runtime/renderer.py): the host pack of the first
+    # transform set, the plan of the second, the device refresh of each later
+    "accel.pack", "accel.plan", "accel.refresh",
     # one CMJ or Sobol draw (sampling/)
     "sampling.draw",
 )

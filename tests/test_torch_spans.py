@@ -5,7 +5,8 @@ CPU at toy sizes:
   bit-equal to the same frame rendered under torch.profiler;
 - under the profiler, both engines' frames carry spans of the documented
   names, nested as opened, every trace inside a bounce; the wavefront
-  engine's lane counters and both engines' draw counter;
+  engine's lane counters, both engines' draw counter, and the static
+  scene's one host pack (frame 0), inside the frame's scene;
 - a span's stamps share the clock of the profiler's events;
 - the functions the benchmark's hooks wrap stay module-level functions
   without a closure;
@@ -123,10 +124,16 @@ def test_traced_frames_carry_nested_spans(engine, out_dir):
                 assert up[0] == "engine.trace"
             if sp[0].startswith("finalize."):
                 assert up[0] == "frame.finalize"
+            if sp[0] == "accel.pack":
+                assert up[0] == "frame.scene"
         n_bounce = sum(1 for sp in spans if sp[0] == "engine.bounce")
         c = s["counters"]
         # every draw is counted; on the CPU none goes through the kernel
         assert c["sampling.draws"] > 0 and "sampling.draws_kernel" not in c
+        # a static scene: frame 0 packs on the host, frame 1 reuses its pack
+        first = s["frame"] == 0
+        assert [sp[0] for sp in spans].count("accel.pack") == first
+        assert not {"accel.plan", "accel.refresh"} & names
         if engine == "wavefront":
             assert 0 < c["engine.lanes_valid"] <= c["engine.lane_slots"]
             # one bounce per iteration of the lanes' loop
