@@ -148,7 +148,15 @@ prints no result. Phases, each of which raises on failure:
     the torch code on the same state; each timed per call by CUDA events
     (the wrapper's host cost included, as the engines pay it), as the
     replay of a CUDA graph (the device alone), and the torch code by CUDA
-    events, beside the bound (its bytes at 3.35 TB/s).
+    events, beside the bound (its bytes at 3.35 TB/s);
+26. the BSDF kernels (``csrc/bsdf.cu``) at 65,536 and 131,072 lanes with
+    the contest scene's lobes (meta-glass, metals, Disney with the
+    thin-film LUT): `bsdf_sample`, `bsdf_eval` and `bsdf_pdf` each one
+    launch, bit-equal to the plain torch code on the same device (the
+    sample's new depth too); kernel and torch code each timed by CUDA
+    events and as a CUDA graph replay, the torch code's launches counted,
+    beside the bound (the lanes' bytes at 3.35 TB/s); then the three
+    kernels' registers and spill bytes from ``nvcc -Xptxas -v``.
 
 Launch counters are zeroed just before, and read just after, each path
 that drives kernels through a user's entry point: phase 7's kernel
@@ -162,9 +170,9 @@ its comparisons), and phases 20-24: each option's render (Sobol, RIS,
 adaptive, the pool re-sort, whose bitonic launches are all 27-column
 pool sorts), the two sharding processes' renders, summed, and phase 24's
 full-size `wavefront_pathtrace` (``api``). Each kernel
-of a path must have grown there; every path draws, so the CMJ kernel's
-count with them. The kernels line reports, as
-`launches`, the bitonic, binned and CMJ counts of the main path, with each
+of a path must have grown there; every path draws and shades, so the CMJ
+and BSDF kernels count with them. The kernels line reports, as
+`launches`, the bitonic, binned, CMJ and BSDF counts of the main path, with each
 of phases 16-24's under `launches_by_path`; the
 two-level kernel's of phases 11-12, the flat and matrix kernels' of
 phase 7, and the network kernels' of
@@ -191,6 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -1327,6 +1336,7 @@ def _shard_worker(rank, store, out_dir, device, size):
     import torch.distributed as dist
 
     from henjou_torch.accel import bitonic, pallas_binned
+    from henjou_torch.bsdf import dispatch
     from henjou_torch.sampling import cmj
 
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=SHARD_WORLD,
@@ -1335,11 +1345,12 @@ def _shard_worker(rank, store, out_dir, device, size):
         dev = torch.device(device)
         r = _renderer(dev, GALLERY, max_spp=SHARD_SPP, spp_batch=1, image_width=size[0],
                       image_height=size[1])
-        bitonic.LAUNCHES = pallas_binned.LAUNCHES = cmj.LAUNCHES = 0
+        bitonic.LAUNCHES = pallas_binned.LAUNCHES = cmj.LAUNCHES = dispatch.LAUNCHES = 0
         out = r.render_frame(0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        launches = dict(bitonic=bitonic.LAUNCHES, binned=pallas_binned.LAUNCHES, cmj=cmj.LAUNCHES)
+        launches = dict(bitonic=bitonic.LAUNCHES, binned=pallas_binned.LAUNCHES, cmj=cmj.LAUNCHES,
+                        bsdf=dispatch.LAUNCHES)
         spp, saves, film = _adaptive_frame(dev, out_dir)
         adaptive = {} if film is None else dict(adaptive_color=film["color"],
                                                  adaptive_count=film["count"],
@@ -1406,7 +1417,7 @@ def phase_sharded(dev, tmp, size=GALLERY_SIZE):
         f"rendered it alone ({int(r0['adaptive_saves'])} checkpoint writes), rank 1 0 spp and "
         f"no writes, no checkpoint left; rank 0 against one process: RMSE {rmse:.3g}, counts "
         "and traces equal")
-    return {k: int(sum(got[k] for got in ranks)) for k in ("bitonic", "binned", "cmj")}
+    return {k: int(sum(got[k] for got in ranks)) for k in ("bitonic", "binned", "cmj", "bsdf")}
 
 
 API_LANES = 1 << 16
@@ -1531,6 +1542,144 @@ def phase_cmj(dev, results):
                 f"{_fmt_ms(plain_ms)}, bound {_fmt_ms(bound_ms)} ({bound_by})")
     main = rows[f"cmj_2d@{CMJ_LANES[0]}"]
     results["cmj"] = dict(main, by_shape=rows)
+
+
+BSDF_LANES = (1 << 16, 1 << 17)
+# bytes a lane: the hit's fields, the directions and the state read; the
+# outputs written (bsdf, wi, pdf, depth; the value; the pdf)
+BSDF_LANE_BYTES = {"bsdf_sample": 78 + 36, "bsdf_eval": 54 + 12, "bsdf_pdf": 33 + 4}
+BSDF_KERNELS = ("bsdf_sample", "bsdf_eval", "bsdf_pdf")
+
+
+def bsdf_resources():
+    """{kernel: registers and spill bytes} of csrc/bsdf.cu's three kernels,
+    from its build with ``-Xptxas -v`` and the library's flags."""
+    import re
+
+    from henjou_torch import csrc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([csrc._nvcc(), *csrc.COMPILE_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                              os.path.join(tmp, "bsdf.o"), str(csrc.CSRC_DIR / "bsdf.cu")],
+                             capture_output=True, text=True, check=True, timeout=900)
+    res, name = {}, None
+    for line in (out.stdout + out.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in BSDF_KERNELS if f"{k}_kernel" in m.group(1)), None)
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            res.setdefault(name, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            res.setdefault(name, {})["registers"] = int(m[1])
+    if set(res) != set(BSDF_KERNELS):
+        raise AssertionError(f"[bsdf] ptxas reported {sorted(res)}:\n{out.stderr}")
+    return res
+
+
+def _torch_launches(fn):
+    """The launches of `fn()`: torch's non-view ops that are not allocations,
+    and the CMJ kernel's draws."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from henjou_torch.sampling import cmj
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func.overloadpacket not in (torch.ops.aten.empty,
+                                                                torch.ops.aten.empty_like):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    draws = cmj.LAUNCHES
+    with Count():
+        fn()
+    return Count.n + cmj.LAUNCHES - draws
+
+
+def _bsdf_inputs(dev, n, rng):
+    """A hit of `n` lanes with the contest scene's lobes (meta-glass, metals,
+    Disney, thin film), wo mostly above the surface, wi anywhere, and a
+    state as the engines make it."""
+    from henjou_torch.sampling import cmj
+
+    hit = types.SimpleNamespace(
+        basecolor=rng.uniform(0, 1, (n, 3)), roughness=rng.uniform(0, 1, n),
+        metallic=np.where(rng.uniform(size=n) < 0.4, 1.0, rng.uniform(0, 0.5, n)),
+        sheen=np.zeros(n), clearcoat=np.zeros(n), ior=rng.uniform(1.2, 2.0, n),
+        is_thinfilm=rng.uniform(size=n) < 0.3, is_specular=rng.uniform(size=n) < 0.2)
+    for k, v in vars(hit).items():
+        setattr(hit, k, torch.from_numpy(v.astype(np.float32) if v.dtype.kind == "f" else v).to(dev))
+    wo, wi = (rng.normal(size=(n, 3)) for _ in range(2))
+    wo[:, 1] = np.where(rng.uniform(size=n) < 0.9, np.abs(wo[:, 1]), wo[:, 1])
+    wo, wi = (torch.from_numpy((v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32))
+              .to(dev) for v in (wo, wi))
+    st = cmj.make_cmj_state(torch.from_numpy(rng.integers(0, 4096, n)).to(dev),
+                            torch.from_numpy(rng.integers(0, 1280 * 720, n)).to(dev),
+                            int(rng.integers(0, 1 << 31)))
+    return hit, wo, wi, st._replace(depth=torch.from_numpy(rng.integers(0, 40, n)).to(dev))
+
+
+def _same(a, b):
+    nan = a.isnan()
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def phase_bsdf(dev, results):
+    """Phase 26: `bsdf_sample`, `bsdf_eval` and `bsdf_pdf` through
+    ``csrc/bsdf.cu`` at each of BSDF_LANES with the contest scene's flags
+    (glass, metal, the LUT; no sheen, no clearcoat): one launch a call, the
+    values (and the sample's depth) bit-equal to the plain torch code on the
+    same device; the kernel and the plain code each timed per call by CUDA
+    events (the wrapper's host cost included) and as a CUDA graph replay
+    (the device alone), the plain code's launches counted, the bound (the
+    lanes' bytes at 3.35 TB/s); then the kernels' registers and spills."""
+    from henjou_torch.bsdf import dispatch
+    from henjou_torch.sampling import cmj
+    from henjou_torch.texture.lut import default_lut
+
+    rng = np.random.default_rng(26)
+    lut = default_lut(dev)
+    flags = dict(has_specular=True, has_metal=True, has_sheen=False, has_clearcoat=False)
+    rows = {}
+    for n in BSDF_LANES:
+        hit, wo, wi, st = _bsdf_inputs(dev, n, rng)
+        calls = {
+            "bsdf_sample": (lambda: dispatch.bsdf_sample(hit, wo, st, lut, **flags),
+                            lambda: dispatch.sample_plain(hit, wo, st, lut, **flags)),
+            "bsdf_eval": (lambda: dispatch.bsdf_eval(hit, wo, wi, lut, False, False),
+                          lambda: dispatch.eval_plain(hit, wo, wi, lut, False, False)),
+            "bsdf_pdf": (lambda: dispatch.bsdf_pdf(hit, wo, wi),
+                         lambda: dispatch.pdf_plain(hit, wo, wi)),
+        }
+        for name, (kernel, plain) in calls.items():
+            launches, draws = dispatch.LAUNCHES, cmj.LAUNCHES
+            got = kernel()
+            if (dispatch.LAUNCHES, cmj.LAUNCHES) != (launches + 1, draws):
+                raise AssertionError(f"[bsdf] {name}: not one launch of the kernel")
+            want = plain()
+            got, want = ((x[:3] + (x[3].depth,)) if isinstance(x, tuple) else (x,)
+                         for x in (got, want))
+            if not all(_same(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"[bsdf] {name} at {n} lanes differs from the torch code")
+            ms, g_ms = cuda_ms(kernel, 200), graph_ms(kernel, 200)
+            plain_ms, plain_g_ms = cuda_ms(plain, 5), graph_ms(plain, 5)
+            bound_ms, bound_by = bound(n * BSDF_LANE_BYTES[name])
+            rows[f"{name}@{n}"] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                                       plain_graph_ms=plain_g_ms,
+                                       plain_launches=_torch_launches(plain),
+                                       bound_ms=bound_ms, bound_by=bound_by)
+            log(f"[bsdf] {name} {n} lanes: bit-equal to the torch code, 1 launch; kernel "
+                f"{_fmt_ms(ms)} per call ({_fmt_ms(g_ms)} as a graph); torch code "
+                f"{_fmt_ms(plain_ms)} ({_fmt_ms(plain_g_ms)} as a graph, "
+                f"{rows[f'{name}@{n}']['plain_launches']} launches); bound "
+                f"{_fmt_ms(bound_ms)} ({bound_by})")
+    res = bsdf_resources()
+    log(f"[bsdf] registers and spill bytes (stores, loads): " + ", ".join(
+        f"{k} {v['registers']}, {v['spill_stores']}/{v['spill_loads']}" for k, v in res.items()))
+    results["bsdf"] = dict(rows[f"bsdf_sample@{BSDF_LANES[1]}"], by_shape=rows, resources=res)
 
 
 def _net_forms(bn, st, plain_st):
@@ -1758,6 +1907,7 @@ def main() -> int:
         sys.exit("chip_smoke: CUDA is not available")
     from henjou_torch import csrc
     from henjou_torch.accel import bitonic, pallas_binned, pallas_cluster_hbm
+    from henjou_torch.bsdf import dispatch
     from henjou_torch.sampling import cmj
 
     dev = torch.device("cuda", 0)
@@ -1779,12 +1929,12 @@ def main() -> int:
     phase_light_query(dev)
 
     def zero():
-        for m in (bitonic, pallas_binned, pallas_cluster_hbm, cmj):
+        for m in (bitonic, pallas_binned, pallas_cluster_hbm, cmj, dispatch):
             m.LAUNCHES = 0
 
     def counts():
         return {"bitonic": bitonic.LAUNCHES, "binned": pallas_binned.LAUNCHES,
-                "cmj": cmj.LAUNCHES}
+                "cmj": cmj.LAUNCHES, "bsdf": dispatch.LAUNCHES}
 
     with tempfile.TemporaryDirectory() as tmp:
         # the main path: the gallery in every render mode, then the contest
@@ -1842,6 +1992,9 @@ def main() -> int:
         t0 = time.monotonic()
         phase_cmj(dev, results)
         log(f"[phase 25] {time.monotonic() - t0:.2f} s")
+        t0 = time.monotonic()
+        phase_bsdf(dev, results)
+        log(f"[phase 26] {time.monotonic() - t0:.2f} s")
         for path, got in by_path.items():
             if min(got.values()) == 0:
                 raise AssertionError(f"[{path}] a kernel was not launched: {got}")
@@ -1861,15 +2014,17 @@ def main() -> int:
         ("mxu_intersect", "mxu", "mxu.cu", "henjou_tpu/accel/pallas_mxu.py:156"),
         ("cmj_draw", "cmj", "cmj.cu", "none: henjou_tpu/sampling/cmj.py and sobol.py are "
                                       "plain jnp code"),
+        ("bsdf_dispatch", "bsdf", "bsdf.cu", "none: henjou_tpu/bsdf/ is plain jnp code"),
     ] + [(k, k, "bitonic_net.cu", NET_REPLACES[k]) for k in NET_REPLACES]
     kernels = [
         dict(name=name, route="cuda", source=f"henjou_torch/csrc/{src}", replaces=replaces,
              launches=launches[key],
              **({"launches_by_path": {p: got[key] for p, got in by_path.items()}}
-                if key in ("bitonic", "binned", "cmj") else {}),
+                if key in ("bitonic", "binned", "cmj", "bsdf") else {}),
              **{f: results[key][f] for f in ("max_abs_err", "ms", "sorted_ms", "masked_ms",
                                              "graph_ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms", "by_shape")
+                                             "library_ms", "by_shape", "plain_graph_ms",
+                                             "plain_launches", "resources")
                 if f in results[key]})
         for name, key, src, replaces in table
     ]

@@ -5,7 +5,8 @@ CPU at toy sizes:
   bit-equal to the same frame rendered under torch.profiler;
 - under the profiler, both engines' frames carry spans of the documented
   names, nested as opened, every trace inside a bounce; the wavefront
-  engine's lane counters, both engines' draw counter, and the static
+  engine's lane counters, both engines' draw and BSDF call counters (on
+  the CPU none through a kernel), and the static
   scene's one host pack (frame 0), inside the frame's scene;
 - a span's stamps share the clock of the profiler's events;
 - the functions the benchmark's hooks wrap stay module-level functions
@@ -128,8 +129,10 @@ def test_traced_frames_carry_nested_spans(engine, out_dir):
                 assert up[0] == "frame.scene"
         n_bounce = sum(1 for sp in spans if sp[0] == "engine.bounce")
         c = s["counters"]
-        # every draw is counted; on the CPU none goes through the kernel
+        # every draw and BSDF call is counted; on the CPU none goes through
+        # a kernel
         assert c["sampling.draws"] > 0 and "sampling.draws_kernel" not in c
+        assert "bsdf.calls_kernel" not in c
         # a static scene: frame 0 packs on the host, frame 1 reuses its pack
         first = s["frame"] == 0
         assert [sp[0] for sp in spans].count("accel.pack") == first
@@ -139,9 +142,14 @@ def test_traced_frames_carry_nested_spans(engine, out_dir):
             # one bounce per iteration of the lanes' loop
             assert c["engine.lane_slots"] == n_bounce * 4096
             assert "engine.readback" in names
+            # one-sample MIS: eval and pdf for NEE, the continuation's sample
+            assert c["bsdf.calls"] == 3 * n_bounce
         else:
-            assert set(c) == {"sampling.draws"} and "engine.readback" not in names
+            assert set(c) == {"sampling.draws", "bsdf.calls"} and "engine.readback" not in names
             assert n_bounce == 10  # one tile, one spp, the depth loop's 10 bounces
+            # two-sample MIS: eval and pdf for NEE, the BSDF branch's sample
+            # and the continuation's
+            assert c["bsdf.calls"] == 4 * n_bounce
 
 
 def test_span_shares_the_profilers_clock():
