@@ -1129,9 +1129,10 @@ def phase_anim(dev, results, zero, counts):
     finally:
         pb.pack_binned_np = real_pack
     launches = counts()
-    if len(packs) > 1 or r._accel_plan is None:
-        raise AssertionError(f"[anim] {len(packs)} host packs, plan {r._accel_plan is not None}")
-    order, c, group, g = r._accel_plan
+    plan = r.scene_accel.plan
+    if len(packs) > 1 or plan is None:
+        raise AssertionError(f"[anim] {len(packs)} host packs, plan {plan is not None}")
+    order, c, group, g = plan
     order_np = order.cpu().numpy()
     rng = np.random.default_rng(6)
     for f in (1, 2):

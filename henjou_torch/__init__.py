@@ -11,7 +11,8 @@ kernels live in ``csrc/`` and are compiled with ``nvcc`` on first use
 (``henjou_torch.csrc.load_library``):
 
 - ``csrc/binned.cu``: the binned closest-hit / any-hit intersector (the
-  renderer's, and the two-sample MIS light query above 512 lights);
+  renderer's, and the two-sample MIS light query above
+  ``runtime/scene_accel.py``'s BINNED_LIGHT_THRESHOLD lights);
 - ``csrc/bitonic.cu``: the payload-carrying ray sort and its inverse;
 - ``csrc/cluster.cu``, ``csrc/cluster_hbm.cu``, ``csrc/mxu.cu``: the flat,
   two-level and matrix-form cluster intersectors, which the scale probe

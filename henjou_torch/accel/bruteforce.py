@@ -3,8 +3,9 @@ henjou_tpu/accel/bruteforce.py).
 
 Möller-Trumbore against every triangle, in chunks of TRI_CHUNK triangles
 with a running best hit, so peak memory is O(R * TRI_CHUNK). It is the
-production path for scenes of 256 triangles or fewer and the oracle the
-binned intersector is tested against.
+production path for scenes of BRUTE_FORCE_MAX_TRIS triangles or fewer
+(`runtime/scene_accel.py`) and the oracle the binned intersector is
+tested against.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """Bounce-ray sorting around every trace (port of
 henjou_tpu/accel/sorting.py: `ray_sort_key`, `DEAD_KEY`,
-`make_sorted_intersector` and `make_bitonic_sorted_intersector`).
+`make_sorted_intersector` and `make_bitonic_sorted_intersector`), and
+`sorted_binned_intersector`, the binned pack's trace as the main path
+issues it.
 
 Before the kernel, rays are sorted by a 24-bit key (direction octant over
 an 18-bit origin Morton code) with dead lanes (tmax <= tmin) last; after
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from henjou_torch.accel import bitonic
+from henjou_torch.accel import bitonic, pallas_binned
 from henjou_torch.utils.timer import span
 
 DEAD_KEY = (1 << 30) - 1
@@ -139,3 +141,10 @@ def make_bitonic_sorted_intersector(intersect_fn, occluded_fn, lo, hi,
         return wrapped
 
     return _sorted(intersect_fn, True), _sorted(occluded_fn, False)
+
+
+def sorted_binned_intersector(bc):
+    """(intersect_fn, occluded_fn) of the binned pack `bc`: the binned
+    kernel inside the bitonic sorted wrapper, as the main path traces."""
+    return make_bitonic_sorted_intersector(*pallas_binned.make_binned_intersector(bc),
+                                           bc.scene_lo, bc.scene_hi)

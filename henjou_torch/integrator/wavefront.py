@@ -509,11 +509,9 @@ def wavefront_pathtrace(
     (`pack_binned_np`), the binned intersector inside the bitonic sorted
     wrapper; without one, by brute force, as the JAX engine does."""
     if intersect_fn is None and accel is not None:
-        from henjou_torch.accel.pallas_binned import make_binned_intersector
-        from henjou_torch.accel.sorting import make_bitonic_sorted_intersector
+        from henjou_torch.accel.sorting import sorted_binned_intersector
 
-        intersect_fn, _ = make_bitonic_sorted_intersector(
-            *make_binned_intersector(accel), accel.scene_lo, accel.scene_hi)
+        intersect_fn, _ = sorted_binned_intersector(accel)
     return wavefront_render(
         frame, sky, cam, width, height, spp, bsdf_sample,
         integrator="pathtrace", seed=seed, lanes=lanes, max_depth=max_depth,

@@ -36,8 +36,8 @@ def canary_film(device) -> np.ndarray:
     """16x16, 4-spp two-sample MIS render of the sphere gallery through the
     production stack, seed 11, 1024 lanes, depth 4. Returns the [256, 3]
     mean-colour film."""
-    from henjou_torch.accel.pallas_binned import make_binned_intersector, pack_binned_np
-    from henjou_torch.accel.sorting import make_bitonic_sorted_intersector
+    from henjou_torch.accel.pallas_binned import pack_binned_np
+    from henjou_torch.accel.sorting import sorted_binned_intersector
     from henjou_torch.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
     from henjou_torch.integrator.payload import Sky
     from henjou_torch.integrator.wavefront import wavefront_render
@@ -48,8 +48,7 @@ def canary_film(device) -> np.ndarray:
     dev = torch.device(device)
     frame = build_frame_scene(build_device_scene(sphere_gallery_scene(), dev))
     pc = pack_binned_np(frame.tri_verts.cpu().numpy(), dev)
-    ifn, ofn = make_bitonic_sorted_intersector(*make_binned_intersector(pc), pc.scene_lo,
-                                               pc.scene_hi)
+    ifn, ofn = sorted_binned_intersector(pc)
     sky = Sky(constant_color=torch.tensor([0.3, 0.4, 0.55], device=dev),
               intensity=torch.tensor(1.0, device=dev))
     cam = make_camera((0.0, 1.2, -9.0), (0.0, -0.05, 1.0), np.radians(45.0), dev)

@@ -1,9 +1,9 @@
 """Renderer facade: canary -> load -> build -> frame loop -> finalize ->
 export.
 
-Port of henjou_tpu/runtime/renderer.py: `build`, `_select_accel`/
-`_accel_adapters`, `frame_scene` (with the animated-geometry switch to a
-planned cluster order refreshed on the device), `render_frame` (one frame
+Port of henjou_tpu/runtime/renderer.py: `build`, `frame_scene` (a
+frame's geometry, built once per frame; its accel comes from
+`runtime/scene_accel.py`), `render_frame` (one frame
 loop for both engines: spp batches over pixel groups, the predictive
 deadline, checkpoint/resume after every spp batch) with each engine's
 step: `_make_wavefront_step` (contiguous pixel chunks through
@@ -15,14 +15,10 @@ probes, `initialize_and_render` (the hardware canary on CUDA, the time
 budget and the PNG naming), and glTF and OBJ scenes. ``engine="auto"``
 is the wavefront engine on every device (the JAX package picks the masked
 engine on the CPU); ``engine="masked"`` renders the reference's
-two-sample estimators. The accelerator is the binned intersector inside
-the bitonic ray sort for scenes over 256 triangles, brute force below;
-the probes trace through the raw binned intersector. With
-``mis_mode="ref"`` (two-sample MIS on the wavefront engine) the
-per-bounce light query is dense (`intersect_lights`) up to
-BINNED_LIGHT_THRESHOLD emissive triangles and goes through the binned
-intersector over the emissive subset above it
-(`make_binned_light_intersector`, cached with the main accel).
+two-sample estimators. `SceneAccel` (`runtime/scene_accel.py`) picks
+and caches each frame's accel, hands the engines their trace functions
+and the two-sample MIS light query; the probes trace through the raw
+binned intersector.
 
 Under a profiler, spans (`utils/timer.py`) mark the frame loop's parts
 (`frame.scene`, `frame.render`, `engine.step`, `frame.film_readback`,
@@ -72,7 +68,7 @@ from henjou_torch.integrator.payload import Sky
 from henjou_torch.post.png import write_png
 from henjou_torch.post.srgb import float_to_srgb_u8
 from henjou_torch.runtime.camera import Camera, make_camera
-from henjou_torch.runtime import sharding
+from henjou_torch.runtime import scene_accel, sharding
 from henjou_torch.runtime.options import RenderMode, RenderOption, load_render_option
 from henjou_torch.sampling.cmj import SOBOL_SEED_FLAG
 from henjou_torch.scene.scenedata import (
@@ -169,10 +165,8 @@ class Renderer:
     MASKED_TILE = 1 << 17
     # the frame loop's per-pixel sums, as a checkpoint names them
     _CKPT_SUMS = ("color", "albedo", "normal", "m2", "cnt")
-    # two-sample MIS traces its light query through the binned
-    # intersector over the emissive subset above this many emissive
-    # triangles, densely below
-    BINNED_LIGHT_THRESHOLD = 512
+    # the JAX Renderer's name for SceneAccel's light threshold
+    BINNED_LIGHT_THRESHOLD = scene_accel.BINNED_LIGHT_THRESHOLD
 
     def __init__(self, option: Optional[RenderOption] = None,
                  integrator: Optional[str] = None, device="cuda"):
@@ -184,11 +178,10 @@ class Renderer:
         self.sky: Optional[Sky] = None
         self.lut = None
         self.bsdf_sample: Optional[Callable] = None
-        self._accel_cache = None
-        # an animated scene's planned cluster order (order on the device,
-        # num_clusters, group, num_groups)
-        self._accel_plan = None
-        self._light_accel_cache = None
+        self.scene_accel: Optional[scene_accel.SceneAccel] = None
+        # (frame, option, (FrameScene, accel, camera)) of the last
+        # `frame_scene` call, for the finalize probes of the same frame
+        self._frame_kept = None
         # the frame loop's seconds per pixel-spp, per engine
         self._est_px_spp: dict = {}
         # DenoiseTemporal state: the previous output with its guides, the
@@ -219,11 +212,10 @@ class Renderer:
     def build(self):
         """Upload the scene and make the BSDF closures."""
         assert self.scene is not None, "set_scene or load a file first"
-        self._accel_cache = None
-        self._accel_plan = None
-        self._light_accel_cache = None
+        self._frame_kept = None
         t0 = time.monotonic()
         self.device_scene = build_device_scene(self.scene, self.device)
+        self.scene_accel = scene_accel.SceneAccel(self.device_scene, self.device)
         opt = self.option
         ibl_tex = None
         use_ibl = False
@@ -268,49 +260,6 @@ class Renderer:
         self.bsdf_pdf = bsdf_pdf
         self.setup_stats["device_scene_s"] = time.monotonic() - t0
         return self
-
-    def _select_accel(self, frame_scene):
-        """Brute force (None) for scenes of 256 triangles or fewer, else the
-        binned cluster pack."""
-        if int(frame_scene.tri_verts.shape[0]) <= 256:
-            return None
-        from henjou_torch.accel.pallas_binned import pack_binned_np
-
-        with span("accel.pack"):
-            return pack_binned_np(frame_scene.tri_verts.cpu().numpy(), self.device)
-
-    @staticmethod
-    def _accel_adapters(accel):
-        """(intersect_fn, occluded_fn) for an accel from `_select_accel`:
-        brute force for None, else the binned kernel inside the bitonic
-        sorted wrapper."""
-        if accel is None:
-            return None, None
-        from henjou_torch.accel.pallas_binned import make_binned_intersector
-        from henjou_torch.accel.sorting import make_bitonic_sorted_intersector
-
-        return make_bitonic_sorted_intersector(
-            *make_binned_intersector(accel), accel.scene_lo, accel.scene_hi
-        )
-
-    @staticmethod
-    def _accel_adapters_wavefront(accel, lanes: int):
-        """(intersect_fn, occluded_fn, pool_key_fn) for the wavefront
-        engine. With HENJOU_POOL_SORT=1, a binned pack and a pool of
-        power-of-two lanes (a multiple of 1024): the raw binned kernels
-        and the ray sort key, so the engine sorts its whole pool once per
-        bounce instead of sorting and unsorting around each trace;
-        otherwise `_accel_adapters` and no key."""
-        pool_ok = lanes % 1024 == 0 and (lanes & (lanes - 1)) == 0
-        if accel is not None and pool_ok and os.environ.get("HENJOU_POOL_SORT", "0") == "1":
-            from henjou_torch.accel.pallas_binned import make_binned_intersector
-            from henjou_torch.accel.sorting import ray_sort_key
-
-            lo = accel.scene_lo.to(torch.float32)
-            inv_extent = 1.0 / torch.clamp(accel.scene_hi.to(torch.float32) - lo, min=1e-12)
-            return (*make_binned_intersector(accel),
-                    lambda o, d: ray_sort_key(o, d, lo, inv_extent))
-        return (*Renderer._accel_adapters(accel), None)
 
     # ---------------- per-frame ----------------
 
@@ -367,64 +316,23 @@ class Renderer:
         return self.option.sampler == "sobol"
 
     def frame_scene(self, frame: int):
-        """(FrameScene, accel, camera) of `frame`. The accel is reused while
-        the instance transforms are unchanged. The first transform set packs
-        on the host (`_select_accel`); the second distinct one plans the
-        cluster order per instance once, and from then on every new set
-        refreshes the pack from that order with torch ops on the scene's
-        device (`build_binned_from_order`)."""
+        """(FrameScene, accel, camera) of `frame`, the accel from
+        `SceneAccel.pack`. The result is kept until the next call for
+        another frame or option, so the finalize probes reuse the triple
+        that `render_frame` built."""
+        kept = self._frame_kept
+        if kept is None or kept[0] != frame or kept[1] is not self.option:
+            fs, xf, cam = self._frame_geometry(frame)
+            self._frame_kept = (frame, self.option, (fs, self.scene_accel.pack(fs, xf), cam))
+        return self._frame_kept[2]
+
+    def _frame_geometry(self, frame: int):
+        """(FrameScene, instance transforms, camera) of `frame`, built anew."""
         time_s = frame / float(self.option.fps)
         xf, inv = self._frame_transforms(time_s)
-        fs = build_frame_scene(
-            self.device_scene,
-            torch.as_tensor(xf, device=self.device),
-            torch.as_tensor(inv, device=self.device),
-        )
-        key = xf.tobytes()
-        if self._accel_cache is None or self._accel_cache[0] != key:
-            self._accel_cache = (key, self._frame_accel(fs))
-        return fs, self._accel_cache[1], self._frame_camera(time_s)
-
-    def _frame_accel(self, fs):
-        """The accel of a transform set not seen last (see `frame_scene`)."""
-        from henjou_torch.accel import pallas_binned
-
-        ntris = int(fs.tri_verts.shape[0])
-        if self._accel_plan is None and self._accel_cache is not None and ntris > 256:
-            with span("accel.plan"):
-                offs = self.device_scene.prim_offsets.cpu().numpy()
-                counts = np.diff(np.append(offs, ntris))
-                order, c, group, g = pallas_binned.plan_binned_order(
-                    fs.tri_verts.cpu().numpy(), list(zip(offs.tolist(), counts.tolist())))
-                self._accel_plan = (torch.from_numpy(order).to(self.device), c, group, g)
-            log.info("animated scene: cluster order planned (%d clusters, group %d); "
-                     "the pack refreshes on the device from here on",
-                     self._accel_plan[1], self._accel_plan[2])
-        if self._accel_plan is not None:
-            with span("accel.refresh"):
-                return pallas_binned.build_binned_from_order(fs.tri_verts, *self._accel_plan)
-        return self._select_accel(fs)
-
-    def light_intersector(self, frame_scene):
-        """The two-sample MIS light query for `frame_scene`: None (dense
-        `intersect_lights`) up to BINNED_LIGHT_THRESHOLD emissive
-        triangles, else the binned intersector over the emissive subset,
-        re-packed whenever the main accel is (same cache key)."""
-        n_lights = int(self.device_scene.num_lights)
-        if n_lights <= self.BINNED_LIGHT_THRESHOLD:
-            return None
-        from henjou_torch.sampling.light_sample import (
-            build_light_accel,
-            make_binned_light_intersector,
-        )
-
-        key = self._accel_cache[0] if self._accel_cache is not None else None
-        if self._light_accel_cache is None or self._light_accel_cache[0] != key:
-            la = build_light_accel(frame_scene.tri_verts.cpu().numpy(),
-                                   self.device_scene.light_prim_ids.cpu().numpy(), self.device)
-            self._light_accel_cache = (key, la)
-            log.info("binned light intersector: %d emissive tris", n_lights)
-        return make_binned_light_intersector(self._light_accel_cache[1])
+        fs = build_frame_scene(self.device_scene, torch.as_tensor(xf, device=self.device),
+                               torch.as_tensor(inv, device=self.device))
+        return fs, xf, self._frame_camera(time_s)
 
     def render_frame(self, frame: int, deadline: Optional[float] = None,
                      checkpoint_path: Optional[str] = None) -> dict:
@@ -464,6 +372,8 @@ class Renderer:
         n = width * height
         t0 = time.monotonic()
         with span("frame.scene"):
+            # no FrameScene of an earlier frame lives into this one's build
+            self._frame_kept = None
             frame_scene, accel, cam = self.frame_scene(frame)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -634,8 +544,8 @@ class Renderer:
         lanes = min(1 << 16, max(1 << 12, 1 << (width * height - 1).bit_length()))
         mis_single = integrator == "mis" and opt.mis_mode != "ref"
         clamp = self._firefly_clamp()
-        intersect_fn, occluded_fn, pool_key_fn = self._accel_adapters_wavefront(accel, lanes)
-        light_isect_fn = (self.light_intersector(frame_scene)
+        intersect_fn, occluded_fn, pool_key_fn = self.scene_accel.wavefront_trace_fns(accel, lanes)
+        light_isect_fn = (self.scene_accel.light_intersector(frame_scene)
                           if integrator == "mis" and not mis_single else None)
         seed = self._frame_seed(frame)
 
@@ -684,7 +594,7 @@ class Renderer:
         from henjou_torch.runtime.camera import camera_rays
         from henjou_torch.sampling.cmj import make_cmj_state
 
-        fns = self._accel_adapters(accel)
+        fns = self.scene_accel.trace_fns(accel)
         seed = self._frame_seed(frame)
 
         def step(pixel_idx, spp_start, spp_count):
@@ -721,14 +631,7 @@ class Renderer:
 
         opt = self.option
         width, height = opt.image_width, opt.image_height
-        time_s = frame / float(opt.fps)
-        xf, inv = self._frame_transforms(time_s)
-        frame_scene = build_frame_scene(
-            self.device_scene,
-            torch.as_tensor(xf, device=self.device),
-            torch.as_tensor(inv, device=self.device),
-        )
-        cam = self._frame_camera(time_s)
+        frame_scene, _, cam = self._frame_geometry(frame)
         pix = torch.arange(width * height, dtype=torch.int64, device=self.device)
         st = make_cmj_state(torch.zeros_like(pix), pix, opt.seed)
         o, d, st = camera_rays(cam, width, height, pix, st)

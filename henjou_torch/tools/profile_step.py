@@ -61,13 +61,14 @@ def run_profile_step(device, lanes: int = LANES, reps: int = 4, log=print) -> di
     plus the step's traces. Small `lanes` suit the CPU."""
     from henjou_torch.accel import bitonic
     from henjou_torch.accel.pallas_binned import pack_binned_np
+    from henjou_torch.accel.sorting import sorted_binned_intersector
     from henjou_torch.bsdf.disney import disney_params, disney_sample
     from henjou_torch.bsdf.dispatch import make_bsdf_sampler
     from henjou_torch.bsdf.msggx import msggx_sample
     from henjou_torch.integrator.mis import mis
     from henjou_torch.integrator.payload import Sky, closest_hit
     from henjou_torch.runtime.camera import camera_rays, make_camera
-    from henjou_torch.runtime.renderer import Renderer, _swizzled_pixel_order, resolve_device
+    from henjou_torch.runtime.renderer import _swizzled_pixel_order, resolve_device
     from henjou_torch.sampling.cmj import make_cmj_state
     from henjou_torch.scene.scenedata import build_device_scene, build_frame_scene
     from henjou_torch.scene.testscenes import sphere_gallery_scene
@@ -83,7 +84,7 @@ def run_profile_step(device, lanes: int = LANES, reps: int = 4, log=print) -> di
 
     frame = build_frame_scene(build_device_scene(sphere_gallery_scene(), dev))
     accel = pack_binned_np(frame.tri_verts.cpu().numpy(), dev)
-    intersect_fn, occluded_fn = Renderer._accel_adapters(accel)
+    intersect_fn, occluded_fn = sorted_binned_intersector(accel)
     log(f"device {dev}: {frame.tri_verts.shape[0]} triangles, {accel.num_clusters} clusters")
     sky = Sky(constant_color=torch.tensor([0.3, 0.4, 0.55], device=dev),
               intensity=torch.tensor(1.0, device=dev))

@@ -34,9 +34,9 @@ import numpy as np
 import torch
 
 from henjou_torch.accel import bitonic, pallas_binned, pallas_cluster_hbm
-from henjou_torch.accel.pallas_binned import make_binned_intersector, pack_binned_np
+from henjou_torch.accel.pallas_binned import pack_binned_np
 from henjou_torch.accel.pallas_cluster_hbm import make_pallas_hbm_intersector, pack_clusters_hbm_np
-from henjou_torch.accel.sorting import make_bitonic_sorted_intersector, make_sorted_intersector
+from henjou_torch.accel.sorting import make_sorted_intersector, sorted_binned_intersector
 from henjou_torch.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
 from henjou_torch.integrator.payload import Sky
 from henjou_torch.integrator.wavefront import wavefront_render
@@ -143,7 +143,7 @@ def build_rows(device, lat=232, lon=420, log=print):
         f"binned group={bc.group} groups={bc.num_groups}, build {info['build_s']:.2f} s")
     rows = {
         "binned+bitonic": (
-            make_bitonic_sorted_intersector(*make_binned_intersector(bc), bc.scene_lo, bc.scene_hi),
+            sorted_binned_intersector(bc),
             {"bitonic": bitonic, "binned": pallas_binned},
         ),
         "hbm sorted": (

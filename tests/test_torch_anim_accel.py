@@ -14,8 +14,9 @@ frame on the device (port of tests/test_twolevel_accel.py).
 - the plain binned intersector on a refreshed pack after a rigid move
   equal to brute force (tests/test_twolevel_accel.py:30, :46);
 - three animated frames run pack_binned_np at most once (:64), on the CPU
-  as on CUDA; an unchanged transform set reuses its accel, and a static
-  scene never plans an order.
+  as on CUDA; an unchanged transform set reuses its accel, a static
+  scene never plans an order, and a scene of 256 triangles or fewer
+  never packs.
 """
 
 import functools
@@ -31,6 +32,7 @@ from henjou_torch.accel.bruteforce import intersect_bruteforce
 from henjou_torch.runtime.options import RenderOption
 from henjou_torch.runtime.renderer import Renderer
 from henjou_torch.scene import animation, testscenes
+from henjou_torch.scene.scenedata import SceneData, make_material
 
 # one intra-op thread: the test lane runs several pytest workers at once
 torch.set_num_threads(1)
@@ -179,9 +181,21 @@ def test_animated_frames_pack_on_the_host_at_most_once(monkeypatch):
     np.testing.assert_allclose(r.frame_scene(2)[1].scene_lo[0] - lo0[0], shift, atol=1e-5)
 
 
-def test_accel_reused_until_the_transforms_change(monkeypatch):
+def _soup(n):
+    """A static scene of n random triangles."""
+    tv = _tris(n).reshape(-1, 3)
+    return SceneData(vertices=tv, indices=np.arange(len(tv)), material_ids=np.zeros(n),
+                     normals=None, texcoords=None, colors=None,
+                     materials=[make_material("grey")])
+
+
+@pytest.mark.parametrize("static, packs", [("gallery", 1), (256, 0), (257, 1)],
+                         ids=["gallery", "256 tris", "257 tris"])
+def test_accel_reused_until_the_transforms_change(monkeypatch, static, packs):
     """A transform set seen last reuses its accel; a static scene packs
-    once and never plans an order."""
+    once and never plans an order, unless it has BRUTE_FORCE_MAX_TRIS
+    (256) triangles or fewer: then it traces by brute force (accel None)
+    and never packs."""
     calls = _counting(monkeypatch)
     r = Renderer(option=RenderOption(end_frame=3), device="cpu")
     r.set_scene(_animated_gallery()).build()
@@ -190,7 +204,8 @@ def test_accel_reused_until_the_transforms_change(monkeypatch):
     assert calls == {"pack": 1, "refresh": 2}, calls
     calls.update(pack=0, refresh=0)
     r = Renderer(option=RenderOption(end_frame=3), device="cpu")
-    r.set_scene(testscenes.sphere_gallery_scene()).build()
-    for f in (0, 1, 2):
-        r.frame_scene(f)
-    assert calls == {"pack": 1, "refresh": 0} and r._accel_plan is None, calls
+    r.set_scene(testscenes.sphere_gallery_scene() if static == "gallery" else _soup(static))
+    r.build()
+    accels = [r.frame_scene(f)[1] for f in (0, 1, 2)]
+    assert calls == {"pack": packs, "refresh": 0} and r.scene_accel.plan is None, calls
+    assert all((a is None) == (packs == 0) for a in accels)

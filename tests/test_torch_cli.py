@@ -12,6 +12,9 @@ import torch
 
 from henjou_torch import render
 from henjou_torch.post.png import read_png
+from henjou_torch.runtime import renderer as trm
+from henjou_torch.runtime import scene_accel
+from henjou_torch.runtime.options import RenderMode
 from henjou_torch.runtime.renderer import Renderer
 
 # one intra-op thread: the test lane runs several pytest workers at once
@@ -144,13 +147,62 @@ def test_renderer_mis_ref_takes_binned_light_query(monkeypatch):
     r.option = dataclasses.replace(r.option, mis_mode="ref", image_width=16, image_height=8,
                                    max_spp=1)
     r._load_scene_from_option()
-    monkeypatch.setattr(Renderer, "BINNED_LIGHT_THRESHOLD", 0)
+    monkeypatch.setattr(scene_accel, "BINNED_LIGHT_THRESHOLD", 0)
     out = r.render_frame(0)
-    key, la = r._light_accel_cache
-    assert key == r._accel_cache[0] and la.light_prim_ids.numel() == r.device_scene.num_lights
+    key, la = r.scene_accel._light
+    assert key == r.scene_accel._pack[0]
+    assert la.light_prim_ids.numel() == r.device_scene.num_lights
     assert out["spp_done"] == 1 and torch.isfinite(torch.as_tensor(out["color"])).all()
     r.render_frame(0)
-    assert r._light_accel_cache[1] is la  # reused while the transforms are unchanged
+    assert r.scene_accel._light[1] is la  # reused while the transforms are unchanged
+
+
+def test_denoise_temporal_builds_each_frame_once(monkeypatch, tmp_path):
+    """Two DenoiseTemporal frames through initialize_and_render build each
+    frame's scene once: the finalize's depth probe takes the triple that
+    the frame loop built. The finalized images equal those of a run that
+    builds the scene again for the probe."""
+    monkeypatch.chdir(ROOT)
+    builds = []
+    real_build = trm.build_frame_scene
+
+    def counted(*a, **k):
+        builds.append(1)
+        return real_build(*a, **k)
+
+    monkeypatch.setattr(trm, "build_frame_scene", counted)
+
+    def run(name):
+        r = Renderer(device="cpu")
+        r.load_render_option(GALLERY)
+        r.option = dataclasses.replace(
+            r.option, render_mode=RenderMode.DENOISE_TEMPORAL, image_width=16, image_height=8,
+            max_spp=1, start_frame=0, end_frame=2, image_directory=str(tmp_path),
+            image_name=name)
+        r._load_scene_from_option()
+        images = []
+
+        def finalize(aovs, frame=None, real=r._finalize):
+            images.append(real(aovs, frame=frame))
+            return images[-1]
+
+        r._finalize = finalize
+        builds.clear()
+        assert len(r.initialize_and_render()) == 2
+        return images, len(builds)
+
+    once, n_once = run("once")
+    real_frame_scene = Renderer.frame_scene
+
+    def rebuilt(self, frame):
+        self._frame_kept = None
+        return real_frame_scene(self, frame)
+
+    monkeypatch.setattr(Renderer, "frame_scene", rebuilt)
+    twice, n_twice = run("twice")
+    assert (n_once, n_twice) == (2, 4)
+    for a, b in zip(once, twice, strict=True):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_masked_engine_still_raises(monkeypatch):

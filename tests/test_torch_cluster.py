@@ -24,13 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from henjou_torch import interop
 from henjou_torch.accel import pallas_cluster as tpc
 from henjou_torch.accel import pallas_cluster_hbm as thbm
 from henjou_torch.accel import pallas_mxu as tmxu
 from henjou_tpu.accel import pallas_cluster as jpc
 from henjou_tpu.accel import pallas_cluster_hbm as jhbm
 from henjou_tpu.accel import pallas_mxu as jmxu
+
+from tests import torch_interop as interop
 
 # one intra-op thread: the test lane runs several pytest workers at once
 torch.set_num_threads(1)

@@ -10,12 +10,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from henjou_torch import interop
 from henjou_torch.runtime import camera as tcam
 from henjou_torch.sampling import cmj as tcmj
 from henjou_torch.utils import timer
 from henjou_tpu.runtime import camera as jcam
 from henjou_tpu.sampling import cmj as jcmj
+
+from tests import torch_interop as interop
 
 # one intra-op thread: the test lane runs several pytest workers at once
 torch.set_num_threads(1)

@@ -24,13 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from henjou_torch import interop
 from henjou_torch.sampling import light_sample as tls
 from henjou_torch.sampling.cmj import make_cmj_state as t_state
 from henjou_tpu.sampling import light_sample as jls
 from henjou_tpu.sampling.cmj import make_cmj_state as j_state
 from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
 
+from tests import torch_interop as interop
 from tests.test_light_power import _two_light_scene
 
 # one intra-op thread: the test lane runs several pytest workers at once

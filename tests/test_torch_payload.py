@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 import torch
 
-from henjou_torch import interop
 from henjou_torch.accel import pallas_binned as tpb
 from henjou_torch.integrator import payload as tpay
 from henjou_torch.sampling import cmj as tcmj
@@ -22,6 +21,8 @@ from henjou_tpu.sampling import light_sample as jls
 from henjou_tpu.scene import gltf as jgltf
 from henjou_tpu.scene import scenedata as jsd
 from henjou_tpu.texture.ibl import load_ibl as j_load_ibl
+
+from tests import torch_interop as interop
 
 # one intra-op thread: the test lane runs several pytest workers at once
 torch.set_num_threads(1)

@@ -9,13 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from henjou_torch import interop
 from henjou_torch.accel import pallas_binned as tpb
 from henjou_torch.scene import gltf as tgltf
 from henjou_torch.scene import scenedata as tsd
 from henjou_tpu.accel import pallas_binned as jpb
 from henjou_tpu.scene import gltf as jgltf
 from henjou_tpu.scene import scenedata as jsd
+
+from tests import torch_interop as interop
 
 # one intra-op thread: the test lane runs several pytest workers at once
 torch.set_num_threads(1)

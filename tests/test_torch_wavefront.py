@@ -184,6 +184,7 @@ def test_renderer_pool_sort_route(monkeypatch):
     the Renderer's film equals the per-trace sorted one within JAX's
     limits."""
     from henjou_torch.runtime.renderer import Renderer
+    from henjou_torch.runtime.scene_accel import SceneAccel
 
     monkeypatch.chdir(ROOT)
 
@@ -196,11 +197,11 @@ def test_renderer_pool_sort_route(monkeypatch):
 
     r, base = render()
     accel = r.frame_scene(0)[1]
-    assert Renderer._accel_adapters_wavefront(accel, 4096)[2] is None
+    assert SceneAccel.wavefront_trace_fns(accel, 4096)[2] is None
     monkeypatch.setenv("HENJOU_POOL_SORT", "1")
-    assert Renderer._accel_adapters_wavefront(accel, 4096)[2] is not None
-    assert Renderer._accel_adapters_wavefront(accel, 3072)[2] is None
-    assert Renderer._accel_adapters_wavefront(None, 4096)[2] is None
+    assert SceneAccel.wavefront_trace_fns(accel, 4096)[2] is not None
+    assert SceneAccel.wavefront_trace_fns(accel, 3072)[2] is None
+    assert SceneAccel.wavefront_trace_fns(None, 4096)[2] is None
     _, pooled = render()
     np.testing.assert_allclose(pooled["color"], base["color"], rtol=1e-4, atol=1e-5)
     assert pooled["n_traces"] == base["n_traces"]
