@@ -548,6 +548,7 @@ class Renderer:
         light_isect_fn = (self.scene_accel.light_intersector(frame_scene)
                           if integrator == "mis" and not mis_single else None)
         seed = self._frame_seed(frame)
+        plans: dict = {}  # this frame's lane pools and CUDA graphs, gone with the step
 
         def step(chunk, spp_start, spp_count, counts=None, cbase=None):
             base, count = chunk
@@ -559,6 +560,7 @@ class Renderer:
                 light_isect_fn=light_isect_fn, spp_offset=spp_start, mis_single=mis_single,
                 pixel_base=base, pixel_count=count, sample_counts=counts, sample_base=cbase,
                 firefly_clamp=clamp, light_ris=opt.light_ris, sobol=self._sobol(),
+                plans=plans,
             )
             return film.color, film.albedo, film.normal, film.m2, film.count, film.n_traces
 

@@ -15,6 +15,7 @@ read from the trace. Each recorded span is [name, index of the enclosing
 recorded span or -1, start ns, end ns]; `take()` hands over and clears
 what was recorded (`Renderer.initialize_and_render` moves it into each
 frame's `frame_stats` entry). NAMES lists every span the program opens.
+A `tally()` block also takes every count made inside it, profiler or not.
 """
 
 from __future__ import annotations
@@ -111,6 +112,8 @@ def phase_log(name: str, fence_value=None):
 _SPANS: list = []
 _OPEN: list = []
 _COUNTS: dict = {}
+# the open `tally` dicts, innermost last
+_TALLIES: list = []
 
 
 class _Off:
@@ -160,9 +163,25 @@ class span:
 
 def count(name: str, n) -> None:
     """Add `n` (a host number) to counter `name` while a profiler session
-    is on."""
+    is on, and to every open `tally`."""
+    for counts in _TALLIES:
+        counts[name] = counts.get(name, 0) + n
     if _autograd_profiler._is_profiler_enabled:
         _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """``with tally() as counts:`` adds every `count` made in its body to
+    the dict `counts`, with or without a profiler session (the wavefront
+    engine keeps a graph capture's counts this way, to count them again at
+    each replay)."""
+    counts: dict = {}
+    _TALLIES.append(counts)
+    try:
+        yield counts
+    finally:
+        _TALLIES.pop()
 
 
 def take():
